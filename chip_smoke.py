@@ -3,25 +3,42 @@
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure raises and exits nonzero):
-  1. device: the card's name and power limit; no CUDA -> exit 2;
-  2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc;
-  3. fixture: the K=16 zkevm-shape key built on the host, fingerprint checked;
-  4. kernel vs plain twin, at the main path's shapes, exact equality: field
-     mul/add/sub (widest tape level x 128 lanes), pow (Fr inversions, Fq
-     square roots), Poseidon (128 states), MSM accumulate and reduce over a
-     16384-point c=8 plan (plus the combined total against the native MSM);
-  5. parity: the port's batched verifier over the 4 unique proofs must give
-     the host value-context oracle's (w_x, w_g) and pass;
-  6. main path: batch 128 (4 proofs tiled 32x), one warm and 3 timed
-     verifies, with every kernel's launch count > 0;
-  7. negative: one flipped transcript-scalar byte must fail the verify.
-Then a JSON line of the kernels, the nvidia-smi line, and the final JSON
-line {"ok": true, "device": {...}}.
+  1. device: the card's name, power limit and top SM clock; no CUDA -> exit 2;
+  2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc
+     (one nvcc per source, in parallel), g++ the native host library;
+  3. setup + keygen: the K=16 SRS (fixed-base add tree) and the zkevm-shape
+     key built on the card, device commits, fingerprint checked; launch
+     counts read for that path;
+  4. kernel vs plain twin, at the main paths' shapes, exact equality: field
+     mul/add/sub (the verifier's widest tape level x 128 lanes and the
+     prover's 2^16-element polynomials), pow (Fr inversions, Fq square
+     roots), Poseidon (128 states), MSM accumulate and reduce at one commit
+     of the prover (2^16 SRS points, c=8; the total against the native MSM),
+     4d padd on 2^14 special pairs (identities, doubling, inverse) and on
+     every level of the SRS add tree (2^20 .. 2^16 pairs), 4e NTT butterfly
+     and scale at k=16 (forward == native fr_ntt, inverse(forward) == input);
+  5. parity: the batched verifier over the 4 committed proofs must give the
+     host value-context oracle's (w_x, w_g) and pass;
+  6. main verify path: batch 128 (4 proofs tiled 32x), one warm and REPS
+     timed verifies, with every kernel of the path launched;
+  7. negative: one flipped transcript-scalar byte must fail the verify;
+  8. prove: fixture proof 0 made on the card with device commits must equal
+     the committed bytes; stage split, launches, commit loads, the host vs
+     device commit A/B on one 2^16-scalar vector; then that proof with
+     fixtures 1-3 through the batch-4 verifier, equal to the oracle.
+Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
+time; `launch_ms`, CUDA events around the Python calls, the host's launch
+rate for short kernels; the twin's time and the bound; and the launches on
+each path), the nvidia-smi line, and the final JSON line
+{"ok": true, "device": {...}}. The script fails if jax or any module of the
+JAX package was imported.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import subprocess
 import sys
 import time
 
@@ -30,6 +47,36 @@ import torch
 
 SEED = 20261016
 REPS = 3
+PADD_PAIRS = 1 << 14    # special cases: identities, P + P, P + (-P)
+PLAIN_CHUNK = 1 << 18   # rows per call of a twin at the prover's sizes
+NTT_K = 16
+
+# Bounds: the least time the card could take, the larger of bytes over the
+# memory rate and 32-bit integer multiply-adds over the IMAD rate.
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+IMAD_PER_CLOCK_PER_SM = 64      # 32-bit IMAD, compute capability 9.0
+# one Montgomery product on 8 x 32-bit words: 64 32x32->64 multiply-adds for
+# a * b and 8 * (1 + 8) for REDC, each 64-bit product two 32-bit IMADs
+MONT_MUL_IMAD = 2 * 64 + (8 + 2 * 64)
+FULL_ADD_MULS = 12              # RCB15 Algorithm 7
+MIXED_ADD_MULS = 11             # RCB15 Algorithm 8
+
+KERNEL_SOURCES = {
+    "field": ("field.cu", "ops/field_pallas.py:106"),
+    "poseidon": ("poseidon.cu", "ops/poseidon_pallas.py:94"),
+    "msm_accumulate": ("msm.cu", "ops/msm_pallas.py:252"),
+    "msm_reduce": ("msm.cu", "ops/msm_pallas.py:285"),
+    "curve_padd": ("curve.cu", "ops/curve_pallas.py:147"),
+    "ntt_butterfly": ("ntt.cu", "ops/ntt_pallas.py:168"),
+    "ntt_scale": ("ntt.cu", "ops/ntt_pallas.py:179"),
+}
+PATH_KERNELS = {
+    "setup_keygen": ("curve_padd", "field", "ntt_butterfly", "ntt_scale",
+                     "msm_accumulate", "msm_reduce"),
+    "verify": ("field", "poseidon", "msm_accumulate", "msm_reduce"),
+    "prove": ("field", "ntt_butterfly", "ntt_scale", "msm_accumulate",
+              "msm_reduce"),
+}
 
 
 def phase(name: str, msg: str) -> None:
@@ -37,7 +84,8 @@ def phase(name: str, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` runs after one warm run."""
+    """Mean time of one call of `fn` over `reps` runs after one warm run,
+    CUDA events: for a short kernel this is the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -50,28 +98,85 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, symbol: str, reps: int) -> float:
+    """Device ms per launch of the CUDA function `symbol` over `reps` runs
+    of `fn` after one warm run: torch.profiler's device time, which the
+    host's launch rate does not hold back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pat = re.compile(r"(^|\s)h2t::" + symbol + r"[<(]")  # csrc's namespace
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if pat.search(ev.key):
+            total_us += (getattr(ev, "self_device_time_total", 0)
+                         or getattr(ev, "self_cuda_time_total", 0))
+            count += ev.count
+    if not count or total_us <= 0:
+        raise AssertionError(f"torch.profiler saw no device time for {symbol}")
+    return total_us / 1e3 / count
+
+
+def timed(fn, symbol: str, reps: int) -> dict:
+    """Device ms per launch (`ms`) and CUDA-event ms per call (`launch_ms`)."""
+    return dict(ms=kernel_ms(fn, symbol, reps), launch_ms=cuda_ms(fn, reps))
+
+
+def once_ms(fn):
+    """(fn(), CUDA-event ms of that one call): for twins too slow to warm."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+class Bounds:
+    """bound_ms of a launch from its bytes and IMADs on this card."""
+
+    def __init__(self, sms: int, clock_mhz: float):
+        self.imad_per_s = sms * IMAD_PER_CLOCK_PER_SM * clock_mhz * 1e6
+
+    def __call__(self, nbytes: float, imads: float) -> tuple[float, str]:
+        t_mem = nbytes / HBM_BYTES_PER_S
+        t_ops = imads / self.imad_per_s
+        return (max(t_mem, t_ops) * 1e3,
+                "bytes" if t_mem >= t_ops else "operations")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
+def rand_ints(modulus: int, n: int, rng) -> list[int]:
+    raw = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+    return [(int(r[0]) | int(r[1]) << 64 | int(r[2]) << 128 | int(r[3]) << 192)
+            % modulus for r in raw]
+
+
 def rand_field(spec, shape, rng, device):
     """Canonical Montgomery words of uniform field elements, shape + (8,)."""
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
 
-    n = int(np.prod(shape))
-    raw = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
-    vals = [(int(r[0]) | int(r[1]) << 64 | int(r[2]) << 128 | int(r[3]) << 192)
-            % spec.modulus for r in raw]
+    vals = rand_ints(spec.modulus, int(np.prod(shape)), rng)
     return fo.to_tensor(fo.ints_to_words(vals), device).reshape(*shape, 8)
 
 
 def value_oracle(params, vk, proofs, insts):
     """(w_x, w_g) of the host value-context aggregation verifier."""
-    from halo2_snark_aggregator_tpu.arith.value import ValueContext, ValueEccChip
-    from halo2_snark_aggregator_tpu.protocol import verify as pv
-    from halo2_snark_aggregator_tpu.protocol.transcript import PoseidonTranscriptRead
+    from halo2_snark_aggregator_tpu_torch.arith.value import ValueContext, ValueEccChip
+    from halo2_snark_aggregator_tpu_torch.protocol import verify as pv
+    from halo2_snark_aggregator_tpu_torch.protocol.transcript import PoseidonTranscriptRead
 
     ctx = ValueContext()
     pchip = ValueEccChip()
@@ -89,8 +194,8 @@ def value_oracle(params, vk, proofs, insts):
     return w_x, w_g
 
 
-def check_field(dev, rng, bv, results):
-    from halo2_snark_aggregator_tpu.ff import bn254 as ff
+def check_field(dev, rng, bv, bound, results):
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
 
     lanes = bv.batch
@@ -113,8 +218,27 @@ def check_field(dev, rng, bv, results):
             fo.field_op_plain(mode, fo.FR, width, src, src, perm[0], perm[1],
                               False, out_p, perm[2], None)
 
-        times[name] = (cuda_ms(run_k, 20), cuda_ms(run_p, 1))
+        times[name] = (timed(run_k, "field_kernel", 20), cuda_ms(run_p, 1))
         errs.append(max_abs_err(out_k, out_p))
+    # the prover's shape: (2^16, 8) Fr polynomials through fo.elementwise
+    n_poly = 1 << NTT_K
+    pa = rand_field(fo.FR, (n_poly,), rng, dev)
+    pb = rand_field(fo.FR, (n_poly,), rng, dev)
+    for mode, name in ((fo.MUL, "prove_mul"), (fo.ADD, "prove_add"),
+                       (fo.SUB, "prove_sub")):
+        out_p = torch.empty((n_poly, 1, 8), dtype=torch.int32, device=dev)
+
+        def run_p():
+            fo.field_op_plain(mode, fo.FR, n_poly, pa.reshape(n_poly, 1, 8),
+                              pb.reshape(n_poly, 1, 8), None, None, False,
+                              out_p, None, None)
+
+        def run_k():
+            return fo.elementwise(mode, fo.FR, pa, pb)
+
+        run_p()
+        errs.append(max_abs_err(run_k(), out_p.reshape(n_poly, 8)))
+        times[name] = (timed(run_k, "field_kernel", 20), cuda_ms(run_p, 3))
     # std -> Montgomery on unreduced operands (phase A feeds Fq coordinates
     # below 2^256 into Fr slots): a * R^2 with a up to 2^256 - 1
     vals = [(1 << 256) - 1, ff.P, ff.R, 2 * ff.R, ff.P - 1, 0]
@@ -143,20 +267,38 @@ def check_field(dev, rng, bv, results):
             fo.field_op_plain(fo.POW, spec, n, a, None, None, None, False,
                               out_p, None, exp)
 
-        times[name] = (cuda_ms(run_k, 5), cuda_ms(run_p, 1))
+        times[name] = (timed(run_k, "field_kernel", 5), cuda_ms(run_p, 1))
         errs.append(max_abs_err(out_k, out_p))
     err = max(errs)
     if err:
         raise AssertionError(f"field kernel differs from its twin: {err}")
-    shapes = f"widest level {width} x {lanes}, inversions {inv_width} x {lanes}, sqrt {n_pts} x {lanes}"
+    shapes = (f"verify: widest level {width} x {lanes}, inversions {inv_width} "
+              f"x {lanes}, sqrt {n_pts} x {lanes}; prove: 2^{NTT_K} x 8 words")
     phase("4a field", f"exact (and on {len(vals)} unreduced operands up to "
-          f"2^256-1); {shapes}; " + ", ".join(
-        f"{k} {v[0]:.4f} ms (plain {v[1]:.2f} ms)" for k, v in times.items()))
-    results["field"] = dict(max_abs_err=err, ms=times["mul"][0],
-                            plain_ms=times["mul"][1], detail=times)
+          f"2^256-1); {shapes}; device ms per launch (launch ms, plain ms): "
+          + ", ".join(f"{k} {t['ms']:.4f} ({t['launch_ms']:.4f}, {p:.2f})"
+                      for k, (t, p) in times.items()))
+    mul, mul_plain = times["prove_mul"]
+    results["field"] = dict(
+        max_abs_err=err, plain_ms=mul_plain, **mul,
+        detail={k: dict(t, plain_ms=p) for k, (t, p) in times.items()},
+        shape=f"mul 2^{NTT_K} x 8 words (the prover's elementwise)",
+        bound=bound(n_poly * 96, n_poly * MONT_MUL_IMAD))
 
 
-def check_poseidon(dev, rng, results):
+def poseidon_imads() -> int:
+    """IMADs of one T=9 permutation: x^5 is 3 products; the MDS is 81 wide
+    products and one REDC per output (csrc/poseidon.cu)."""
+    from halo2_snark_aggregator_tpu_torch.hashes import poseidon_spec as pspec
+
+    t = pspec.T
+    mds = t * t * 2 * 64 + t * (8 + 2 * 64)
+    full = t * 3 * MONT_MUL_IMAD + mds
+    partial = 3 * MONT_MUL_IMAD + mds
+    return pspec.R_F * full + pspec.R_P * partial
+
+
+def check_poseidon(dev, rng, bound, results):
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import poseidon as po
 
@@ -168,53 +310,218 @@ def check_poseidon(dev, rng, results):
     errs, times = [], []
     for n_in, pad in ((8, -1), (3, 4)):
         buf_k, buf_p = base.clone(), base.clone()
-        times.append((cuda_ms(lambda: po.sponge_call(buf_k, st, ins, n_in, pad, out), 10),
+        times.append((timed(lambda: po.sponge_call(buf_k, st, ins, n_in, pad, out),
+                            "poseidon_kernel", 10),
                       cuda_ms(lambda: po.sponge_call_plain(buf_p, st, ins, n_in, pad, out), 1)))
         errs.append(max_abs_err(buf_k, buf_p))
     err = max(errs)
     if err:
         raise AssertionError(f"poseidon kernel differs from its twin: {err}")
-    phase("4b poseidon", f"exact over {lanes} states; kernel {times[0][0]:.4f} ms "
-          f"(plain {times[0][1]:.2f} ms) per call")
-    results["poseidon"] = dict(max_abs_err=err, ms=times[0][0], plain_ms=times[0][1])
+    t, t_plain = times[0]
+    phase("4b poseidon", f"exact over {lanes} states; kernel {t['ms']:.4f} ms "
+          f"device, {t['launch_ms']:.4f} ms launch (plain {t_plain:.2f} ms) per call")
+    results["poseidon"] = dict(max_abs_err=err, plain_ms=t_plain, **t,
+                               shape=f"{lanes} states",
+                               bound=bound(lanes * 26 * 32, lanes * poseidon_imads()))
 
 
-def check_msm(dev, rng, params, results):
-    from halo2_snark_aggregator_tpu.ff import bn254 as ff
-    from halo2_snark_aggregator_tpu_torch.ops import curve as cv
+def check_msm(dev, rng, params, bound, results):
+    """The accumulate and reduce kernels at one commit of the prover: the
+    2^16-point affine SRS table, c = 8, uniform scalars."""
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import msm as pm
 
-    n, c = 16384, 8
-    pts = list(params.g[:n])
-    raw = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
-    scal = [(int(r[0]) | int(r[1]) << 64 | int(r[2]) << 128 | int(r[3]) << 192)
-            % ff.R for r in raw]
-    tx, ty, _ident = pm.affine_table(cv.from_affine_ints(pts, dev))
+    n, c = params.n, params.msm_window
+    scal = rand_ints(ff.R, n, rng)
+    tx, ty, _ident = params.table()
     plan = pm.plan_to_device(
         pm.host_bucket_plan(fo.words_to_canonical16(fo.ints_to_words(scal)), c), dev)
     windows, nb = plan[2].shape
     acc_k = pm.accumulate(tx, ty, *plan)
-    acc_p = pm.accumulate_plain(tx, ty, *plan)
+    acc_p, acc_plain_ms = once_ms(lambda: pm.accumulate_plain(tx, ty, *plan))
     err_a = max_abs_err(acc_k, acc_p)
     tot_k = pm.reduce(acc_k, windows, nb)
-    tot_p = pm.reduce_plain(acc_k, windows, nb)
+    tot_p, red_plain_ms = once_ms(lambda: pm.reduce_plain(acc_k, windows, nb))
     err_r = max_abs_err(tot_k, tot_p)
     if err_a or err_r:
         raise AssertionError(f"msm kernels differ from their twins: {err_a}, {err_r}")
     got = pm.combine_windows_host(tuple(tot_k[:, i] for i in range(3)), c)
-    if got != ff.g1_msm(pts, scal):
+    if got != ff.g1_msm(params.g_host_points(), scal):
         raise AssertionError("msm total differs from the native MSM")
-    ta = (cuda_ms(lambda: pm.accumulate(tx, ty, *plan), 5),
-          cuda_ms(lambda: pm.accumulate_plain(tx, ty, *plan), 1))
-    tr = (cuda_ms(lambda: pm.reduce(acc_k, windows, nb), 5),
-          cuda_ms(lambda: pm.reduce_plain(acc_k, windows, nb), 1))
+    ta = (timed(lambda: pm.accumulate(tx, ty, *plan), "accumulate_kernel", 5),
+          acc_plain_ms)
+    tr = (timed(lambda: pm.reduce(acc_k, windows, nb), "reduce_kernel", 5),
+          red_plain_ms)
+    adds = int(plan[2].sum())
     phase("4c msm", f"exact over {n} points, c={c}, max bucket load "
           f"{int(plan[2].max())}; total == native g1_msm; accumulate "
-          f"{ta[0]:.3f} ms (plain {ta[1]:.1f} ms), reduce {tr[0]:.3f} ms "
-          f"(plain {tr[1]:.1f} ms)")
-    results["msm_accumulate"] = dict(max_abs_err=err_a, ms=ta[0], plain_ms=ta[1])
-    results["msm_reduce"] = dict(max_abs_err=err_r, ms=tr[0], plain_ms=tr[1])
+          f"{ta[0]['ms']:.3f} ms (plain {ta[1]:.1f} ms), reduce "
+          f"{tr[0]['ms']:.3f} ms (plain {tr[1]:.1f} ms), device time")
+    lanes = windows * nb
+    results["msm_accumulate"] = dict(
+        max_abs_err=err_a, plain_ms=ta[1], **ta[0],
+        shape=f"{n} points, c={c}, {adds} mixed adds",
+        bound=bound(n * 64 + windows * n * 4 + lanes * 8 + lanes * 96,
+                    adds * MIXED_ADD_MULS * MONT_MUL_IMAD))
+    results["msm_reduce"] = dict(
+        max_abs_err=err_r, plain_ms=tr[1], **tr[0],
+        shape=f"{windows} windows x {nb} buckets",
+        bound=bound(lanes * 96 + windows * 96,
+                    windows * 2 * (nb - 1) * FULL_ADD_MULS * MONT_MUL_IMAD))
+
+
+def check_padd(dev, rng, params, bound, results):
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
+    from halo2_snark_aggregator_tpu_torch.ops import curve as cv
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.prover import srs
+
+    m = PADD_PAIRS
+    a = params.g_dev[:m].clone()
+    b = params.g_dev[m : 2 * m].clone()
+    ident = torch.stack([torch.zeros(8, dtype=torch.int32, device=dev),
+                         fo.const(fo.FQ, 1, dev)[0],
+                         torch.zeros(8, dtype=torch.int32, device=dev)])
+    b[0] = ident                  # P + O
+    a[1] = ident                  # O + Q
+    a[2] = ident                  # O + O
+    b[2] = ident
+    b[3] = a[3]                   # P + P
+    b[4] = a[4]                   # P + (-P)
+    b[4, 1] = fo.elementwise(fo.SUB, fo.FQ, torch.zeros_like(a[4, 1]), a[4, 1])
+    out_k = cv.padd(a, b)
+    out_p = cv.padd_plain(a, b)
+    err = max_abs_err(out_k, out_p)
+    twice_k = cv.padd(out_k, out_k)    # projective inputs, z != 1
+    err = max(err, max_abs_err(twice_k, cv.padd_plain(out_k, out_k)))
+    if err:
+        raise AssertionError(f"padd kernel differs from its twin: {err}")
+    ha = cv.to_affine_ints(a[:8].unbind(1))
+    hb = cv.to_affine_ints(b[:8].unbind(1))
+    if cv.to_affine_ints(out_k[:8].unbind(1)) != [ff.g1_add(p, q)
+                                                  for p, q in zip(ha, hb)]:
+        raise AssertionError("padd special cases differ from the host add")
+    # the SRS add tree as setup runs it: 2^16 scalars' 32 digit points from
+    # the generator's table, summed in 5 padd levels; each level's kernel
+    # output against the twin on the same inputs, the first level timed
+    n = params.n
+    table = srs.g1_table(dev)
+    pts = srs.digit_points(fo.ints_to_words(rand_ints(ff.R, n, rng)), table)
+    levels, t = [], None
+    while pts.shape[0] > 1:
+        half = pts.shape[0] // 2
+        lo = pts[:half].reshape(-1, 3, 8)
+        hi = pts[half:].reshape(-1, 3, 8)
+        out_k = cv.padd(lo, hi)
+        out_p, plain_ms = once_ms(lambda: torch.cat([
+            cv.padd_plain(lo[i : i + PLAIN_CHUNK], hi[i : i + PLAIN_CHUNK])
+            for i in range(0, lo.shape[0], PLAIN_CHUNK)]))
+        err = max(err, max_abs_err(out_k, out_p))
+        if t is None:
+            t = dict(timed(lambda: cv.padd(lo, hi), "padd_kernel", 10),
+                     plain_ms=plain_ms)
+            m = lo.shape[0]
+        levels.append(lo.shape[0])
+        pts = out_k.reshape(half, n, 3, 8)
+    if err:
+        raise AssertionError(f"padd kernel differs from its twin: {err}")
+    phase("4d padd", f"exact over {PADD_PAIRS} pairs (identity either side and "
+          f"both, P + P, P + (-P), projective inputs) and the SRS tree's "
+          f"levels {levels} pairs; first level {t['ms']:.4f} ms device, "
+          f"{t['launch_ms']:.4f} ms launch (plain {t['plain_ms']:.1f} ms)")
+    results["curve_padd"] = dict(max_abs_err=err, **t,
+                                 shape=f"{m} pairs (SRS tree level 1 of 5)",
+                                 bound=bound(m * 288, m * FULL_ADD_MULS * MONT_MUL_IMAD))
+
+
+def check_ntt(dev, rng, bound, results):
+    from halo2_snark_aggregator_tpu_torch import native
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
+    from halo2_snark_aggregator_tpu_torch.prover.domain import omega_for_k
+
+    k = NTT_K
+    n = 1 << k
+    vals = rand_ints(fo.FR.modulus, n, rng)
+    x = fo.mont_words(fo.FR, vals, dev)
+    rev, tw, n_inv = pn.device_plan(k, True, dev)
+    xk, xp = x[rev], x[rev]
+    err = 0
+    for s in range(k):
+        half = 1 << s
+        pn.butterfly(xk, tw[half - 1 : 2 * half - 1], half)
+        pn.butterfly_plain(xp, tw[half - 1 : 2 * half - 1], half)
+        err = max(err, max_abs_err(xk, xp))
+    err_s = max_abs_err(pn.scale(xk, n_inv), pn.scale_plain(xk, n_inv))
+    if err or err_s:
+        raise AssertionError(f"ntt kernels differ from their twins: {err}, {err_s}")
+    fwd = pn.ntt_auto(x, k)
+    if fo.from_mont_words(fo.FR, fwd) != native.fr_ntt(vals, omega_for_k(k)):
+        raise AssertionError("forward NTT differs from the native fr_ntt")
+    if not torch.equal(pn.ntt_auto(fwd, k, inverse=True), x):
+        raise AssertionError("inverse(forward(x)) != x")
+
+    def stages(fn):
+        def run():
+            for s in range(k):
+                half = 1 << s
+                fn(xk, tw[half - 1 : 2 * half - 1], half)
+        return run
+
+    tb = timed(stages(pn.butterfly), "ntt_butterfly_kernel", 10)
+    tb["launch_ms"] /= k
+    tb_p = cuda_ms(stages(pn.butterfly_plain), 1) / k
+    ts = (timed(lambda: pn.scale(xk, n_inv, out=xk), "ntt_scale_kernel", 20),
+          cuda_ms(lambda: pn.scale_plain(xk, n_inv), 3))
+    t_ntt = cuda_ms(lambda: pn.ntt_auto(x, k), 10)
+    t_intt = cuda_ms(lambda: pn.ntt_auto(x, k, inverse=True), 10)
+    phase("4e ntt", f"k={k}: butterfly and scale exact; forward == native "
+          f"fr_ntt, inverse(forward) == input; butterfly {tb['ms']:.4f} ms "
+          f"device, {tb['launch_ms']:.4f} ms launch per stage (plain "
+          f"{tb_p:.2f} ms), scale {ts[0]['ms']:.4f} ms device, "
+          f"{ts[0]['launch_ms']:.4f} ms launch (plain {ts[1]:.2f} ms), NTT "
+          f"{t_ntt:.3f} ms, INTT {t_intt:.3f} ms (events)")
+    stage_bytes = sum(n * 64 + (1 << s) * 32 for s in range(k)) / k
+    results["ntt_butterfly"] = dict(
+        max_abs_err=err, plain_ms=tb_p, **tb, shape=f"n=2^{k}, per stage",
+        bound=bound(stage_bytes, n // 2 * MONT_MUL_IMAD), ntt_ms=t_ntt,
+        intt_ms=t_intt)
+    results["ntt_scale"] = dict(max_abs_err=err_s, plain_ms=ts[1], **ts[0],
+                                shape=f"n=2^{k}",
+                                bound=bound(n * 64, n * MONT_MUL_IMAD))
+
+
+def commit_ab(params, rng) -> str:
+    """One host and one device commit of the same 2^16-scalar vector, in
+    turns host, device, device, host; the two must agree."""
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    v = rand_field(fo.FR, (params.n,), rng, params.device)
+    params.g_host_points()
+    mode0 = params.commit_mode
+    times, points = {"host": [], "device": []}, set()
+    params.commit_log = []
+    for mode in ("host", "device", "device", "host"):
+        params.commit_mode = mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        points.add(params.commit_coeff_mont(v))
+        times[mode].append(time.perf_counter() - t0)
+    loads = [c["max_load"] for c in params.commit_log if c["mode"] == "device"]
+    params.commit_log = None
+    params.commit_mode = mode0
+    if len(points) != 1:
+        raise AssertionError("host and device commits differ")
+    return (f"host {times['host'][0]:.3f}/{times['host'][1]:.3f} s, device "
+            f"{times['device'][0]:.3f}/{times['device'][1]:.3f} s (max bucket "
+            f"load {max(loads)})")
+
+
+def forbidden_modules() -> list[str]:
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m.split(".")[0] == "halo2_snark_aggregator_tpu")
 
 
 def main() -> int:
@@ -224,7 +531,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     from halo2_snark_aggregator_tpu_torch import device as dv
-    from halo2_snark_aggregator_tpu_torch import fixtures
+    from halo2_snark_aggregator_tpu_torch import fixtures, native
+    from halo2_snark_aggregator_tpu_torch import prove as pprove
     from halo2_snark_aggregator_tpu_torch.bench import DUP, card_info
     from halo2_snark_aggregator_tpu_torch.kernels import build
     from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
@@ -232,18 +540,41 @@ def main() -> int:
     dev = dv.cuda_device()
     name = torch.cuda.get_device_name(0)
     card = card_info()
-    phase("1 device", f"{name}; nvidia-smi: {card}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound = Bounds(sms, clock)
+    phase("1 device", f"{name}; nvidia-smi: {card}; {sms} SMs, max SM clock "
+          f"{clock:.0f} MHz; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.library()
-    phase("2 build", f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a, "
-          f"built={build.BUILD_INFO['built']})")
+    t_nvcc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library did not build")
+    phase("2 build", f"nvcc {t_nvcc:.1f} s (sm_90a, one nvcc per source, "
+          f"built={build.BUILD_INFO['built']}); g++ native "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    params, vk, uniq, timings = fixtures.zkevm_k16()
-    phase("3 fixture", f"K=16 vk fingerprint {fixtures.K16_FINGERPRINT}; setup "
+    paths: dict[str, dict] = {}
+
+    def read_path(path: str) -> None:
+        paths[path] = dict(build.LAUNCHES)
+        missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path} path did not launch {missing}")
+
+    build.reset_launches()
+    params, vk, apk, timings = fixtures.setup_k16(dev, "device")
+    read_path("setup_keygen")
+    phase("3 setup+keygen", f"K=16 SRS and zkevm-shape key on the card, vk "
+          f"fingerprint {fixtures.K16_FINGERPRINT}; setup "
           f"{timings['setup_s']:.1f} s, keygen {timings['keygen_s']:.1f} s "
-          f"(host, cached after the first run)")
+          f"(device commits); launches {paths['setup_keygen']}")
+    uniq = fixtures.load_proofs(fixtures.K16, fixtures.K16_FINGERPRINT,
+                                fixtures.K16_PROOFS)
     proofs = [p for p, _ in uniq] * DUP
     insts = [i for _, i in uniq] * DUP
     t0 = time.perf_counter()
@@ -253,9 +584,11 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     results: dict = {}
-    check_field(dev, rng, bv, results)
-    check_poseidon(dev, rng, results)
-    check_msm(dev, rng, params, results)
+    check_field(dev, rng, bv, bound, results)
+    check_poseidon(dev, rng, bound, results)
+    check_msm(dev, rng, params, bound, results)
+    check_padd(dev, rng, params, bound, results)
+    check_ntt(dev, rng, bound, results)
 
     t0 = time.perf_counter()
     want = value_oracle(params, vk, [p for p, _ in uniq], [i for _, i in uniq])
@@ -279,14 +612,12 @@ def main() -> int:
         if not ok:
             raise AssertionError("batch-128 timed verify failed")
     dt = (time.perf_counter() - t0) / REPS
-    launches = dict(build.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path did not launch {missing}")
+    read_path("verify")
     stages = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in bv.last_profile.items())
     phase("6 main", f"batch {bv.batch} K=16 zkevm-shape: {bv.batch / dt:.2f} "
           f"proofs/s ({dt:.3f} s/verify) on {card}; record {record_s:.1f} s; "
-          f"launches {launches}; {len(bv.tape.records)} tape records, "
+          f"launches over {REPS + 1} verifies {paths['verify']}; "
+          f"{len(bv.tape.records)} tape records, "
           f"{sum(len(e) for e, _ in bv.msm_plans)} MSM entries/lane; "
           f"stages: {stages}")
 
@@ -304,21 +635,40 @@ def main() -> int:
         raise AssertionError("corrupted proof was accepted")
     phase("7 negative", f"flipped scalar byte at offset {off} of proof 5 -> {verdict}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    sources = {"field": ("field.cu", "ops/field_pallas.py:106"),
-               "poseidon": ("poseidon.cu", "ops/poseidon_pallas.py:94"),
-               "msm_accumulate": ("msm.cu", "ops/msm_pallas.py:252"),
-               "msm_reduce": ("msm.cu", "ops/msm_pallas.py:285")}
+    run = pprove.timed_proof(params, apk, 0)  # resets the counts first
+    read_path("prove")
+    if run["proof"] != uniq[0][0]:
+        raise AssertionError("the proof made on the card differs from "
+                             "zkevm_proof_k16_f98756fd8c860e04_0.json")
+    split = " ".join(f"{k}={v:.2f}s" for k, v in run["stages_s"].items())
+    ab = commit_ab(params, rng)
+    fresh = [run["proof"]] + [p for p, _ in uniq[1:]]
+    w_x, w_g, ok = bv4.verify(fresh, [i for _, i in uniq])
+    if not ok or (w_x, w_g) != want:
+        raise AssertionError("batch-4 verify of the new proof failed parity")
+    phase("8 prove", f"K=16 proof 0 with device commits == committed bytes "
+          f"({len(run['proof'])} B); {run['seconds']:.2f} s/proof; stages "
+          f"{split}; {run['commits']} commits, slowest {run['commit_s_max']:.3f} s, "
+          f"max bucket load {run['max_bucket_load']}; launches {paths['prove']}; "
+          f"commit A/B {ab}; batch-4 verify with fixtures 1-3 == oracle")
+
+    bad_mods = forbidden_modules()
+    if bad_mods:
+        raise AssertionError(f"imported jax or the JAX package: {bad_mods[:5]}")
     kernels = []
-    for kname, (src, ref) in sources.items():
+    for kname, (src, ref) in KERNEL_SOURCES.items():
         r = results[kname]
+        by_path = {p: c[kname] for p, c in paths.items() if c[kname]}
+        bound_ms, bound_by = r["bound"]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"halo2_snark_aggregator_tpu_torch/csrc/{src}",
             "replaces": f"halo2_snark_aggregator_tpu/{ref}",
-            "launches": launches[kname], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

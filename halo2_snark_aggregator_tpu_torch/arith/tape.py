@@ -29,11 +29,10 @@ import os
 import numpy as np
 import torch
 
-from halo2_snark_aggregator_tpu.arith.api import FieldChip
-from halo2_snark_aggregator_tpu.hashes import poseidon_spec as pspec
-
+from ..hashes import poseidon_spec as pspec
 from ..ops import field as fo
 from ..ops import poseidon as po
+from .api import FieldChip
 
 FR = fo.FR
 

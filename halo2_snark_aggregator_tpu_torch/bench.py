@@ -38,7 +38,10 @@ def card_info() -> str:
 
 
 def bench_zkevm_batched(dev: torch.device, reps: int) -> dict:
-    params, vk, proofs, _timings = fixtures.zkevm_k16()
+    params, vk, _apk, _timings = fixtures.setup_k16(dev, "device",
+                                                    cached_srs=True)
+    proofs = fixtures.load_proofs(fixtures.K16, fixtures.K16_FINGERPRINT,
+                                  fixtures.K16_PROOFS)
     proofs = proofs * DUP
     proof_bytes = [p for p, _ in proofs]
     insts = [i for _, i in proofs]

@@ -1,32 +1,29 @@
-"""The K=16 zkevm-shape workload without jax: committed proofs, host SRS and
-host keygen.
+"""The K=16 zkevm-shape workload: committed proofs, and the SRS and key
+built by the port's accelerated setup and keygen on the card.
 
 The four proofs in bench_fixtures/ were made for the verifying key with
-transcript fingerprint f98756fd8c860e04 (the reference's bench.py builds
-that key through its accelerated setup and keygen). Here the same key comes
-from the host path — `ParamsKZG.unsafe_setup(16)` and `keygen` over
-`ZkevmShapeCircuit(k=16, seed=1, n_groups=8)` — and its fingerprint is
-checked before any proof is trusted. The setup and the key are cached under
-`_cache/` (gitignored) through a temp file and `os.replace`, so a run killed
-mid-write leaves no broken cache.
+transcript fingerprint f98756fd8c860e04: `unsafe_setup_accel(16)` and
+`keygen_accel` over `ZkevmShapeCircuit(k=16, seed=1, n_groups=8)`, the
+reference's bench.py path. `setup_k16` runs that path through the kernels
+(SRS add tree, NTTs, device commits) and checks the fingerprint before any
+proof is trusted; with `cached_srs` the SRS comes from `_cache/`
+(gitignored, prover/srs.setup_cached_accel).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-import os
-import pickle
 import time
 from pathlib import Path
 
-from halo2_snark_aggregator_tpu.circuits.zkevm import ZkevmShapeCircuit
-from halo2_snark_aggregator_tpu.prover.keygen import keygen
-from halo2_snark_aggregator_tpu.prover.kzg import ParamsKZG
+from . import device as dv
+from .circuits.zkevm import ZkevmShapeCircuit
+from .prover import accel, srs
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE_DIR = REPO / "bench_fixtures"
-CACHE_DIR = Path(__file__).resolve().parent / "_cache"
+K16 = 16
 K16_FINGERPRINT = "f98756fd8c860e04"
 K16_GROUPS = 8    # ZkevmShapeCircuit n_groups of the fixtures' key
 K16_PROOFS = 4    # committed proofs for that key
@@ -36,30 +33,16 @@ def vk_fingerprint(vk) -> str:
     return hashlib.sha256(str(vk.transcript_repr()).encode()).hexdigest()[:16]
 
 
-def _write_atomic(path: Path, obj) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}")
-    with open(tmp, "wb") as f:
-        pickle.dump(obj, f)
-    os.replace(tmp, path)
+def check_fingerprint(vk) -> None:
+    fp = vk_fingerprint(vk)
+    if fp != K16_FINGERPRINT:
+        raise RuntimeError(f"vk fingerprint {fp} != {K16_FINGERPRINT}: the "
+                           "committed proofs are not for this key")
 
 
-def _cached(path: Path, make):
-    """Load a pickle this module wrote, or make and store it."""
-    if path.exists():
-        with open(path, "rb") as f:
-            return pickle.load(f), True
-    obj = make()
-    _write_atomic(path, obj)
-    return obj, False
-
-
-def params(k: int) -> ParamsKZG:
-    data, _hit = _cached(
-        CACHE_DIR / f"params_k{k}.pkl",
-        lambda: vars(ParamsKZG.unsafe_setup(k)))
-    return ParamsKZG(data["k"], data["g"], data["g_lagrange"], data["g2"],
-                     data["s_g2"])
+def k16_circuit(seed: int) -> ZkevmShapeCircuit:
+    """seed 1 is the key's circuit; proof i of the fixtures is seed 2 + i."""
+    return ZkevmShapeCircuit(k=K16, seed=seed, n_groups=K16_GROUPS)
 
 
 def load_proofs(k: int, fingerprint: str, nproofs: int) -> list:
@@ -74,22 +57,25 @@ def load_proofs(k: int, fingerprint: str, nproofs: int) -> list:
     return out
 
 
-def zkevm_k16():
-    """(params, vk, [(proof, instances)], timings) for the K=16 workload.
-    Raises if the host-built key does not match the fixtures' key."""
-    k = 16
+def setup_k16(device="cuda", commit_mode: str = "device",
+              cached_srs: bool = False):
+    """(AccelParams, vk, AccelPk, timings): the SRS (from `_cache/` when
+    `cached_srs`) and the key built through the kernels. Raises if the key
+    is not the fixtures'."""
+    dev = dv.resolve(device)
     timings = {}
     t0 = time.perf_counter()
-    prm = params(k)
+    if cached_srs:
+        params = srs.setup_cached_accel(K16, device=dev)
+    else:
+        params = srs.unsafe_setup_accel(K16, device=dev)
+    params.commit_mode = commit_mode
+    dv.synchronize(dev)
     timings["setup_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    vk, _hit = _cached(
-        CACHE_DIR / f"vk_zkevm_k{k}_g{K16_GROUPS}.pkl",
-        lambda: keygen(ZkevmShapeCircuit(k=k, seed=1, n_groups=K16_GROUPS),
-                       k, prm)[0])
+    vk, apk = accel.keygen_accel(k16_circuit(1), K16, params)
+    dv.synchronize(dev)
     timings["keygen_s"] = time.perf_counter() - t0
-    fp = vk_fingerprint(vk)
-    if fp != K16_FINGERPRINT:
-        raise RuntimeError(f"host vk fingerprint {fp} != {K16_FINGERPRINT}: "
-                           "the committed proofs are not for this key")
-    return prm, vk, load_proofs(k, fp, K16_PROOFS), timings
+    check_fingerprint(vk)
+    return params, vk, apk, timings
+

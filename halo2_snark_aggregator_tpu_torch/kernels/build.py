@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile with nvcc for `sm_90a` into one shared
-library with a plain C interface, keyed by a hash of every source and
-header, under `_build/` (gitignored). It is loaded with `ctypes`, with
-`argtypes` set for every entry point. The build runs at first use; a
-missing nvcc or a failed compile raises — there is no fallback.
+Every `csrc/*.cu` source compiles with its own nvcc for `sm_90a`, all
+started together, and the objects link into one shared library with a
+plain C interface, keyed by a hash of every source and header, under
+`_build/` (gitignored). It is loaded with `ctypes`, with `argtypes` set for
+every entry point. The build runs at first use; a missing nvcc or a failed
+compile raises — there is no fallback.
 
 Every kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, so a run can show that the main path went through the kernels.
@@ -25,9 +26,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("field", "poseidon", "msm_accumulate", "msm_reduce")
+KERNELS = ("field", "poseidon", "msm_accumulate", "msm_reduce", "curve_padd",
+           "ntt_butterfly", "ntt_scale")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}
 
@@ -40,6 +42,9 @@ _SIGNATURES = {
     "h2t_poseidon": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P],
     "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     "h2t_msm_reduce": [_P, _I64, _I64, _P, _P],
+    "h2t_curve_padd": [_P, _P, _P, _I64, _P],
+    "h2t_ntt_butterfly": [_P, _P, _I64, _I64, _P],
+    "h2t_ntt_scale": [_P, _P, _P, _I64, _P],
 }
 
 
@@ -76,16 +81,39 @@ def _nvcc() -> str:
 
 
 def _compile(so_path: Path) -> None:
+    """One nvcc per source, all running at once, then one link."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so_path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    (BUILD_DIR / f"ptxas-{so_path.stem}.log").write_text(proc.stderr)
+    tag = f"{so_path.stem}.tmp{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}-{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, _obj, proc in jobs:
+        out, err = proc.communicate()
+        logs.append(f"== {src.name}\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+    objs = [obj for _src, obj, _proc in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = so_path.with_suffix(f".tmp{os.getpid()}.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (BUILD_DIR / f"ptxas-{so_path.stem}.log").write_text("\n".join(logs))
     os.replace(tmp, so_path)
 
 

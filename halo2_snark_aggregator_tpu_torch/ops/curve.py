@@ -1,20 +1,28 @@
 """BN254 G1 on Montgomery Fq words: host conversions, the plain twins of
-the complete additions the MSM kernels inline, and batched decompression.
+the complete additions (csrc/curve.cuh), the wrapper of the batched
+complete-add kernel (csrc/curve.cu), affine normalisation on the device and
+batched decompression.
 
-A point is a tuple (x, y, z) of (..., 8) word tensors; the identity is
-(0 : 1 : 0). The additions are Renes-Costello-Batina 2015 for a = 0,
-b3 = 9: Algorithm 7 (projective + projective, complete) and Algorithm 8
-(projective + affine, complete for q != infinity). The twins evaluate the
-same field expressions as csrc/msm.cu; independent products are stacked
-into one call, which changes no value (every intermediate is canonical).
+A point is a tuple (x, y, z) of (..., 8) word tensors, or one (m, 3, 8)
+tensor where a kernel takes a batch; the identity is (0 : 1 : 0). The
+additions are Renes-Costello-Batina 2015 for a = 0, b3 = 9: Algorithm 7
+(projective + projective, complete) and Algorithm 8 (projective + affine,
+complete for q != infinity). The twins evaluate the same field expressions
+as csrc/curve.cuh; independent products are stacked into one call, which
+changes no value (every intermediate is canonical).
+
+`padd` ports halo2_snark_aggregator_tpu/ops/curve_pallas.py `padd_pallas`
+(and ops/curve_rr.add on batched projective points): on a CUDA tensor it
+launches the kernel, on a CPU tensor its twin `padd_plain` runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from halo2_snark_aggregator_tpu.ff import bn254 as ff
+from ..ff import bn254 as ff
 
+from ..kernels import build
 from . import field as fo
 
 FQ = fo.FQ
@@ -146,6 +154,57 @@ def mixed_add(p, qx, qy):
     out = mixed_add_h(tuple(fo.halves(c) for c in p), fo.halves(qx),
                       fo.halves(qy))
     return tuple(fo.words(c) for c in out)
+
+
+# -- the batched complete add (csrc/curve.cu) ------------------------------------
+
+
+def _check_points(t: torch.Tensor, name: str, m: int, device) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != (m, 3, fo.WORDS):
+        raise ValueError(f"{name}: want int32 ({m}, 3, 8), got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def padd_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The padd kernel's semantics in plain PyTorch: (m, 3, 8) + (m, 3, 8)."""
+    out = full_add(a.unbind(1), b.unbind(1))
+    return torch.stack(out, dim=1)
+
+
+def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complete G1 add of two (m, 3, 8) projective batches, row by row."""
+    m = a.shape[0]
+    _check_points(a, "a", m, a.device)
+    _check_points(b, "b", m, a.device)
+    if a.device.type == "cpu":
+        return padd_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = torch.empty_like(a)
+    rc = build.library().h2t_curve_padd(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(rc, "curve_padd")
+    build.count_launch("curve_padd")
+    return out
+
+
+def normalize_affine(points: torch.Tensor) -> torch.Tensor:
+    """(m, 3, 8) projective -> the same points with z = 1 (Montgomery), and
+    the identity as (0, 1, 0), through the field kernel: one Fermat
+    inversion per row (z^(p-2), so z = 0 gives 0) and two products."""
+    x, y, z = points.unbind(1)
+    zinv = fo.elementwise(fo.POW, FQ, z.contiguous(), exponent=ff.P - 2)
+    ax = fo.elementwise(fo.MUL, FQ, x.contiguous(), zinv)
+    ay = fo.elementwise(fo.MUL, FQ, y.contiguous(), zinv)
+    one = fo.const(FQ, 1, points.device).expand_as(z)
+    ident = (z == 0).all(dim=-1, keepdim=True)
+    zero = torch.zeros_like(ax)
+    return torch.stack([torch.where(ident, zero, ax),
+                        torch.where(ident, one, ay),
+                        torch.where(ident, zero, one)], dim=1)
 
 
 # -- decompression -------------------------------------------------------------

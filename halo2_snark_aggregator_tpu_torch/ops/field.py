@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2_snark_aggregator_tpu.ff import bn254 as ff
+from ..ff import bn254 as ff
 
 from ..kernels import build
 

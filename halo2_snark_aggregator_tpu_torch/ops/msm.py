@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2_snark_aggregator_tpu.ff import bn254 as ff
+from ..ff import bn254 as ff
 
 from ..kernels import build
 from . import curve as cv
@@ -227,18 +227,22 @@ def plan_to_device(plan, device):
                  for a in plan)
 
 
-def msm_totals(table, scalars16: np.ndarray, c: int) -> torch.Tensor:
+def msm_totals(table, scalars16: np.ndarray, c: int,
+               stats: dict | None = None) -> torch.Tensor:
     """Window totals (W, 3, 8) of sum_i s_i P_i: host plan -> accumulate ->
     reduce. table: `affine_table`'s (x, y, identity) on the device;
     scalars16: uint32[N, 16] standard-form 16-bit limbs. An identity row's
     scalar is taken as zero, so the plan never reads that row (the mixed
-    add is incomplete for q = infinity)."""
+    add is incomplete for q = infinity). A `stats` dict receives the plan's
+    largest bucket load (`max_load`) and its mixed adds (`adds`)."""
     tx, ty, ident = table
     if len(ident) != len(scalars16):
         raise ValueError("table and scalars differ in length")
     scalars16 = scalars16.copy()
     scalars16[ident] = 0
-    order, starts, counts = plan_to_device(host_bucket_plan(scalars16, c),
-                                           tx.device)
+    plan = host_bucket_plan(scalars16, c)
+    if stats is not None:
+        stats.update(max_load=int(plan[2].max()), adds=int(plan[2].sum()))
+    order, starts, counts = plan_to_device(plan, tx.device)
     acc = accumulate(tx, ty, order, starts, counts)
     return reduce(acc, counts.shape[0], counts.shape[1])

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from halo2_snark_aggregator_tpu.hashes import poseidon_spec as pspec
+from ..hashes import poseidon_spec as pspec
 
 from ..kernels import build
 from . import field as fo

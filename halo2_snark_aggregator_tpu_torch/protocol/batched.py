@@ -30,16 +30,15 @@ import time
 import numpy as np
 import torch
 
-from halo2_snark_aggregator_tpu.ff import bn254 as ff
-from halo2_snark_aggregator_tpu.hashes.poseidon_chip import PoseidonChipSponge
-from halo2_snark_aggregator_tpu.protocol import verify as pv
-from halo2_snark_aggregator_tpu.transcript.host import PoseidonRead, PoseidonSponge
-
 from .. import device as dv
 from ..arith.tape import Slot, Tape, TapeFieldChip, compile_tape
+from ..ff import bn254 as ff
+from ..hashes.poseidon_chip import PoseidonChipSponge
 from ..ops import curve as cv
 from ..ops import field as fo
 from ..ops import msm as msm_mod
+from ..transcript.host import PoseidonRead, PoseidonSponge
+from . import verify as pv
 
 FR = fo.FR
 NBYTES = 32
@@ -138,10 +137,12 @@ class RecordingTranscript:
 
 
 class BatchedVerifier:
-    """Record once per (vk, batch) on `device`; verify many batches."""
+    """Record once per (vk, batch) on `device` (the card unless the caller
+    asks for the CPU); verify many batches."""
 
     def __init__(self, vk, params, batch: int, sample_proof: bytes,
-                 sample_instances: list, msm_window: int = 8, *, device):
+                 sample_instances: list, msm_window: int = 8, *,
+                 device="cuda"):
         self.vk = vk
         self.params = params
         self.batch = batch

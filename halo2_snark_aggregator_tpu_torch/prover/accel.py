@@ -1,0 +1,920 @@
+"""The accelerated PLONK prover on one device: keygen and create_proof with
+every polynomial as (n, 8) Montgomery Fr words on the card.
+
+Port of halo2_snark_aggregator_tpu/prover/accel.py (`AccelParams`,
+`AccelPk`, `keygen_accel`, `create_proof_accel`, `_compute_h_sharded` and
+their helpers). The pipeline is the reference's:
+
+  * Lagrange <-> coefficient moves and coset extensions are NTTs
+    (ops/ntt.ntt_auto: the butterfly and scale kernels);
+  * every product, sum and difference of polynomials is the field kernel
+    (ops/field.elementwise);
+  * commitments are Pippenger MSMs: on the device through ops/msm.msm_totals
+    (the accumulate and reduce kernels, unsigned plan, window
+    `msm_window`) over the affine SRS table, or on the host through the
+    native Pippenger (`commit_mode`; by default the params' device decides,
+    and the reference's "auto" rule, host MSMs up to k = 22 while the
+    native library loads, is not ported);
+  * the quotient h(X) is evaluated one coset shard at a time
+    (`_compute_h_sharded`): shard s holds evaluations on zeta w_ext^s H, a
+    rotation is a roll, and the vanishing divisor is one constant a shard;
+  * grand products are log-depth doubling prefix products and one batched
+    inversion; KZG openings use the NTT form of Kate division.
+
+Bit-exact contract: `create_proof_accel` writes the same bytes as
+prover/prove.create_proof (same transcript layout, same blinding RNG call
+order). The reference's spill mode (host-resident polynomials for k = 22)
+is not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import random as _random
+import time
+
+import numpy as np
+import torch
+
+from .. import device as dv
+from ..ff import bn254 as ff
+from ..ff.bn254 import FR_DELTA, FR_GENERATOR, R
+from ..ops import curve as cv
+from ..ops import field as fo
+from ..ops import msm as msm_ops
+from ..ops.ntt import ntt_auto as ntt_dev
+from ..protocol.plonk import ConstraintSystem, Expression, VerifyingKey
+from ..protocol.queryplan import query_plan, rotation_sets
+from .domain import Domain, omega_for_k
+from .keygen import Assignment, ProvingKey
+from .kzg import ParamsKZG
+from .prove import _permute_pair
+
+FR = fo.FR
+WORDS = fo.WORDS
+log = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Codecs and row-wise field ops (the field kernel)
+# ---------------------------------------------------------------------------
+
+
+def m_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return fo.elementwise(fo.MUL, FR, a, b)
+
+
+def m_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return fo.elementwise(fo.ADD, FR, a, b)
+
+
+def m_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return fo.elementwise(fo.SUB, FR, a, b)
+
+
+def m_to_mont(a: torch.Tensor) -> torch.Tensor:
+    """Standard words (< r) -> Montgomery words: one product by R^2."""
+    return m_mul(a, fo.const(FR, FR.r2, a.device, mont=False))
+
+
+def m_from_mont(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery words -> standard words: one product by 1."""
+    return m_mul(a, fo.const(FR, 1, a.device, mont=False))
+
+
+def m_select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(cond[:, None], a, b)
+
+
+def ints_to_std(vals) -> np.ndarray:
+    """Python ints -> uint32 (n, 8) standard-form words of v mod r."""
+    return fo.ints_to_words([int(v) % R for v in vals])
+
+
+def ints_to_mont(vals, device) -> torch.Tensor:
+    """Python ints -> (n, 8) Montgomery words on `device`."""
+    return m_to_mont(fo.to_tensor(ints_to_std(vals), device))
+
+
+def mont_to_ints(arr: torch.Tensor) -> list[int]:
+    return fo.words_to_ints(m_from_mont(arr))
+
+
+def mont_scalar(v: int, device) -> torch.Tensor:
+    """One Fr value as a (1, 8) Montgomery word tensor."""
+    return fo.const(FR, v % R, device)
+
+
+def _bcast(scalar_mont: torch.Tensor, n: int) -> torch.Tensor:
+    return scalar_mont.expand(n, WORDS)
+
+
+def mont_powers(base: int, n: int, device) -> torch.Tensor:
+    """[1, base, base^2, ..., base^(n-1)] Montgomery, by log-doubling."""
+    one = mont_scalar(1, device)
+    if n == 1:
+        return one
+    p = torch.cat([one, mont_scalar(base, device)])
+    cur = mont_scalar(base * base % R, device)
+    while p.shape[0] < n:
+        p = torch.cat([p, m_mul(p, cur.expand_as(p))])
+        cur = m_mul(cur, cur)
+    return p[:n]
+
+
+def _sum_mont_host(v: torch.Tensor) -> int:
+    """Exact sum of a (m, 8) Montgomery vector as a canonical int: word
+    columns summed in int64 on the device (m < 2^31 rows of words below
+    2^32), the carries and the Montgomery factor on the host."""
+    cols = (v.to(torch.int64) & 0xFFFFFFFF).sum(dim=0).tolist()
+    total = sum(int(c) << (32 * i) for i, c in enumerate(cols))
+    return total * pow(1 << 256, -1, R) % R
+
+
+def _cumprod_mont(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product of a (n, 8) Montgomery vector (log-depth
+    doubling with a ones-pad shift)."""
+    n = v.shape[0]
+    ones = _bcast(mont_scalar(1, v.device), n)
+    d = 1
+    while d < n:
+        v = m_mul(v, torch.cat([ones[:d], v[:-d]]))
+        d *= 2
+    return v
+
+
+def _eval_at(poly_mont: torch.Tensor, powers: torch.Tensor) -> int:
+    """A coefficient-form poly at the point whose powers are `powers`."""
+    return _sum_mont_host(m_mul(poly_mont, powers[: poly_mont.shape[0]]))
+
+
+def _batch_inv(v: torch.Tensor) -> torch.Tensor:
+    """Batched inversion by prefix and suffix products with one host
+    inversion of the total (the reference's large-n path, here at every n).
+    Every entry must be nonzero (the prover's denominators are shifted by
+    random challenges); a zero entry raises."""
+    n = v.shape[0]
+    pre = _cumprod_mont(v)
+    suf = torch.flip(_cumprod_mont(torch.flip(v, [0])), [0])
+    total = mont_to_ints(pre[n - 1 :])[0]
+    if total == 0:
+        raise ZeroDivisionError("batched inversion of a vector with a zero entry")
+    inv_total = _bcast(mont_scalar(pow(total, -1, R), v.device), n)
+    one = mont_scalar(1, v.device)
+    pre_shift = torch.cat([one, pre[:-1]])
+    suf_shift = torch.cat([suf[1:], one])
+    return m_mul(m_mul(pre_shift, suf_shift), inv_total)
+
+
+# ---------------------------------------------------------------------------
+# Stage timer (host clock, a synchronize at every boundary)
+# ---------------------------------------------------------------------------
+
+
+class StageTimer:
+    """Exclusive seconds per named span: a nested span's time is not
+    counted in its parent. Disabled, a span costs nothing and never
+    synchronizes."""
+
+    def __init__(self, device, enabled: bool):
+        self.device = device
+        self.enabled = enabled
+        self.seconds: dict[str, float] = {}
+        self._stack: list[str] = []
+        self._t = 0.0
+
+    def _mark(self) -> None:
+        dv.synchronize(self.device)
+        now = time.perf_counter()
+        if self._stack:
+            self.seconds[self._stack[-1]] += now - self._t
+        self._t = now
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        self._mark()
+        self._stack.append(name)
+        self.seconds.setdefault(name, 0.0)
+        try:
+            yield
+        finally:
+            self._mark()
+            self._stack.pop()
+
+
+_NULL_TIMER = StageTimer(torch.device("cpu"), False)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident SRS + Pippenger commitments
+# ---------------------------------------------------------------------------
+
+
+class AccelParams:
+    """KZG params with the coefficient-basis SRS on the device.
+
+    `g_dev` is (n, 3, 8) affine Montgomery Fq words (z = 1; the identity
+    (0, 1, 0)). Every commitment goes through `commit_coeff_mont`; Lagrange
+    commits are INTT + commit, the same group element. `commit_mode`:
+    "device" (the MSM kernels) or "host" (the native Pippenger); left None,
+    commits follow the params' device: the kernels on a CUDA device, the
+    host Pippenger on the CPU.
+    A list in `commit_log` receives one record per commit."""
+
+    def __init__(self, k: int, g_dev, g2, s_g2, g_lagrange,
+                 host: ParamsKZG | None = None, commit_mode: str | None = None,
+                 *, device="cuda", msm_window: int = 8):
+        self.k = k
+        self.n = 1 << k
+        self.device = dv.resolve(device)
+        if commit_mode is None:
+            commit_mode = "device" if self.device.type == "cuda" else "host"
+        if commit_mode not in ("device", "host"):
+            raise ValueError(f"unknown commit_mode {commit_mode!r}")
+        self.g_dev = g_dev
+        self.g2 = g2
+        self.s_g2 = s_g2
+        self.g_lagrange = g_lagrange
+        self.host = host
+        self.commit_mode = commit_mode
+        self.msm_window = msm_window
+        self.commit_log: list | None = None
+        self._table = None
+        self._g_host = None
+
+    @staticmethod
+    def from_params(params: ParamsKZG, commit_mode: str | None = None, *,
+                    device="cuda", msm_window: int = 8) -> "AccelParams":
+        dev = dv.resolve(device)
+        g_dev = torch.stack(cv.from_affine_ints(params.g, dev), dim=1)
+        return AccelParams(params.k, g_dev, params.g2, params.s_g2,
+                           params.g_lagrange, host=params,
+                           commit_mode=commit_mode, device=dev,
+                           msm_window=msm_window)
+
+    def g_host_points(self) -> list:
+        """Affine int SRS points for host commits (from the device table
+        when no host ParamsKZG came with it)."""
+        if self.host is not None:
+            return self.host.g
+        if self._g_host is None:
+            self._g_host = cv.to_affine_ints(self.g_dev.unbind(1))
+        return self._g_host
+
+    def table(self):
+        """The accumulate kernel's affine table (every row checked)."""
+        if self._table is None:
+            self._table = msm_ops.affine_table(self.g_dev.unbind(1))
+        return self._table
+
+    def commit_coeff_mont(self, coeffs_mont: torch.Tensor):
+        """Commit a Montgomery coefficient vector; an affine int point or
+        None (the identity)."""
+        record = self.commit_log is not None
+        if record:
+            dv.synchronize(self.device)
+            t0 = time.perf_counter()
+        stats: dict = {}
+        if self.commit_mode == "host":
+            scalars = mont_to_ints(coeffs_mont)
+            out = ff.g1_msm(self.g_host_points()[: len(scalars)], scalars)
+            mode = "host"
+        else:
+            m = coeffs_mont.shape[0]
+            scalars = np.zeros((self.n, 16), dtype=np.uint32)
+            scalars[:m] = fo.words_to_canonical16(m_from_mont(coeffs_mont))
+            totals = msm_ops.msm_totals(self.table(), scalars,
+                                        self.msm_window, stats=stats)
+            out = msm_ops.combine_windows_host(totals.unbind(1),
+                                               self.msm_window)
+            mode = "device"
+        if record:
+            self.commit_log.append(dict(mode=mode, seconds=time.perf_counter() - t0,
+                                        **stats))
+        return out
+
+    def commit_lagrange_ints(self, values: list[int]):
+        """Small commit in the Lagrange basis (instance columns)."""
+        return ff.g1_msm(self.g_lagrange[: len(values)], values)
+
+
+# ---------------------------------------------------------------------------
+# Accelerated proving key and keygen
+# ---------------------------------------------------------------------------
+
+
+class AccelPk:
+    """ProvingKey with all polynomials as device Montgomery vectors."""
+
+    def __init__(self, vk: VerifyingKey, domain: Domain,
+                 fixed_lagrange, fixed_coeff, sigmas_lagrange, sigmas_coeff):
+        self.vk = vk
+        self.domain = domain
+        self.fixed_lagrange = fixed_lagrange
+        self.fixed_coeff = fixed_coeff
+        self.sigmas_lagrange = sigmas_lagrange
+        self.sigmas_coeff = sigmas_coeff
+
+    @staticmethod
+    def from_host(pk: ProvingKey, device="cuda") -> "AccelPk":
+        dev = dv.resolve(device)
+
+        def up(cols):
+            return [ints_to_mont(c, dev) for c in cols]
+
+        return AccelPk(pk.vk, pk.domain, up(pk.fixed_lagrange),
+                       up(pk.fixed_coeff), up(pk.sigmas_lagrange),
+                       up(pk.sigmas_coeff))
+
+
+def keygen_accel(circuit, k: int, params: AccelParams,
+                 instances: list[list[int]] | None = None,
+                 assignment: Assignment | None = None):
+    """keygen_vk + keygen_pk on the device, identical (vk, sigma polys,
+    commitments) to prover.keygen.keygen: the permutation cycle-splice over
+    flat Python lists, sigmas gathered from an omega-power table on the
+    device, NTTs and commitments on the device. Returns (vk, AccelPk)."""
+    dev = params.device
+    cs = ConstraintSystem()
+    config = circuit.configure(cs)
+    n = 1 << k
+    usable = n - (cs.blinding_factors() + 1)
+    if assignment is None:
+        assignment = Assignment(cs, n, usable, instances)
+        log.info("keygen_accel: synthesizing (n=%d)...", n)
+        circuit.synthesize(config, assignment)
+
+    domain = Domain(k)
+    fixed_lagrange = [ints_to_mont(col, dev) for col in assignment.fixed]
+    fixed_coeff = [ntt_dev(col, k, inverse=True) for col in fixed_lagrange]
+
+    # permutation mapping: cycle-splice union-find over flat lists
+    cols = cs.permutation_columns
+    ncols = len(cols)
+    col_pos = {c: i for i, c in enumerate(cols)}
+    map_list = list(range(ncols * n))  # mapping[cell] -> cell'
+    aux = list(range(ncols * n))
+
+    def find(cell: int) -> int:
+        root = cell
+        while aux[root] != root:
+            root = aux[root]
+        while aux[cell] != root:  # path compression
+            aux[cell], cell = root, aux[cell]
+        return root
+
+    for col_a, row_a, col_b, row_b in assignment.copies:
+        a = col_pos[col_a] * n + row_a
+        b = col_pos[col_b] * n + row_b
+        ra, rb = find(a), find(b)
+        if ra == rb:
+            continue
+        map_list[a], map_list[b] = map_list[b], map_list[a]
+        aux[ra] = rb
+    map_flat = torch.tensor(map_list, dtype=torch.int64).reshape(ncols, n)
+    del map_list, aux
+
+    # sigma[c][r] = delta^{mc} * omega^{mr}, (mc, mr) = mapping[c][r]
+    omega_pows = mont_powers(domain.omega, n, dev)
+    deltas = ints_to_mont([pow(FR_DELTA, c, R) for c in range(ncols)], dev)
+    map_dev = map_flat.to(dev)
+    sigmas_lagrange = [m_mul(omega_pows[map_dev[ci] % n], deltas[map_dev[ci] // n])
+                       for ci in range(ncols)]
+    sigmas_coeff = [ntt_dev(s, k, inverse=True) for s in sigmas_lagrange]
+
+    log.info("keygen_accel: committing %d fixed + %d sigma cols",
+             len(fixed_coeff), len(sigmas_coeff))
+    vk = VerifyingKey(
+        k=k, cs=cs,
+        fixed_commitments=[params.commit_coeff_mont(c) for c in fixed_coeff],
+        permutation_commitments=[params.commit_coeff_mont(s)
+                                 for s in sigmas_coeff],
+    )
+    return vk, AccelPk(vk, domain, fixed_lagrange, fixed_coeff,
+                       sigmas_lagrange, sigmas_coeff)
+
+
+# ---------------------------------------------------------------------------
+# The prover
+# ---------------------------------------------------------------------------
+
+
+def create_proof_accel(
+    apk: AccelPk,
+    params: AccelParams,
+    circuits: list,
+    instances_per_proof: list[list[list[int]]],
+    transcript,
+    seed: int = 0,
+    timer: StageTimer | None = None,
+) -> bytes:
+    """Drop-in for prover.prove.create_proof: identical transcript bytes
+    for identical inputs and seed. `timer` (a StageTimer) splits the time
+    into synthesis, ntt, commit, quotient, open and other."""
+    timer = timer or _NULL_TIMER
+    dev = params.device
+    vk = apk.vk
+    cs = vk.cs
+    domain = apk.domain
+    k, n = domain.k, domain.n
+    bf = cs.blinding_factors()
+    usable = n - (bf + 1)
+    num_proofs = len(instances_per_proof)
+    rng = _random.Random(seed)
+
+    def rand_fr() -> int:
+        return rng.randrange(R)
+
+    def scalar(v: int) -> torch.Tensor:
+        return _bcast(mont_scalar(v, dev), n)
+
+    def intt(arr):
+        with timer.span("ntt"):
+            return ntt_dev(arr, k, inverse=True)
+
+    def ntt(arr):
+        with timer.span("ntt"):
+            return ntt_dev(arr, k, inverse=False)
+
+    def commit(coeffs):
+        with timer.span("commit"):
+            return params.commit_coeff_mont(coeffs)
+
+    def to_mont(vals):
+        return ints_to_mont(vals, dev)
+
+    one_v = scalar(1)
+
+    with timer.span("other"):
+        # -- 0. vk digest --------------------------------------------------
+        transcript.common_scalar(vk.transcript_repr())
+
+        # -- 1. instances --------------------------------------------------
+        instance_lagrange = []  # [proof][col] (n, 8) Montgomery
+        instance_coeff = []
+        for insts in instances_per_proof:
+            assert len(insts) == cs.num_instance_columns
+            cols_l, cols_c = [], []
+            for vals in insts:
+                assert len(vals) <= usable
+                col = to_mont(list(vals) + [0] * (n - len(vals)))
+                cols_l.append(col)
+                cols_c.append(intt(col))
+                transcript.common_point(params.commit_lagrange_ints(list(vals)))
+            instance_lagrange.append(cols_l)
+            instance_coeff.append(cols_c)
+
+        # -- 2. advice: per-phase synthesis -> blind -> commit -> challenges
+        # (mirrors prove.py exactly, including the blinding RNG call order)
+        advice_lagrange = [[None] * cs.num_advice_columns for _ in range(num_proofs)]
+        advice_coeff = [[None] * cs.num_advice_columns for _ in range(num_proofs)]
+        assert len(circuits) == num_proofs
+        challenges: dict[int, int] = {}
+        for phase in cs.phases():
+            for p in range(num_proofs):
+                with timer.span("synthesis"):
+                    config = circuits[p].configure(ConstraintSystem())
+                    assignment = Assignment(cs, n, usable, instances_per_proof[p],
+                                            challenges=challenges)
+                    circuits[p].synthesize(config, assignment)
+                for col_idx, col_phase in enumerate(cs.advice_column_phase):
+                    if col_phase == phase:
+                        col = list(assignment.advice[col_idx])
+                        for r in range(usable, n):
+                            col[r] = rand_fr()
+                        lag = to_mont(col)
+                        advice_lagrange[p][col_idx] = lag
+                        advice_coeff[p][col_idx] = intt(lag)
+                        transcript.write_point(commit(advice_coeff[p][col_idx]))
+            for ch_idx, ch_phase in enumerate(cs.challenge_phase):
+                if ch_phase == phase:
+                    challenges[ch_idx] = transcript.squeeze_challenge()
+        challenge_list = [challenges.get(i, 0) for i in range(cs.num_challenges)]
+
+        theta = transcript.squeeze_challenge()
+
+        # -- expression evaluation over Lagrange rows ----------------------
+        def eval_expr_rows(expr: Expression, p: int):
+            def roll(arr, rot):
+                return torch.roll(arr, -rot, dims=0) if rot else arr
+
+            return expr.evaluate(
+                constant=scalar,
+                fixed=lambda q: roll(apk.fixed_lagrange[cs.fixed_queries[q][0]],
+                                     cs.fixed_queries[q][1]),
+                advice=lambda q: roll(advice_lagrange[p][cs.advice_queries[q][0]],
+                                      cs.advice_queries[q][1]),
+                instance=lambda q: roll(
+                    instance_lagrange[p][cs.instance_queries[q][0]],
+                    cs.instance_queries[q][1]),
+                challenge=lambda i: scalar(challenge_list[i]),
+                neg=lambda a: m_sub(torch.zeros_like(a), a),
+                add=m_add,
+                mul=m_mul,
+                scale=lambda a, s: m_mul(a, scalar(s)),
+            )
+
+        def compress(exprs: list[Expression], p: int):
+            theta_b = scalar(theta)
+            out = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+            for e in exprs:
+                out = m_add(m_mul(out, theta_b), eval_expr_rows(e, p))
+            return out
+
+        # -- 3. lookups: permuted pairs -------------------------------------
+        lookups_data = []  # [proof][lookup] dict of device vectors
+        for p in range(num_proofs):
+            per_proof = []
+            for arg in cs.lookups:
+                a_rows = compress(arg.input_expressions, p)
+                s_rows = compress(arg.table_expressions, p)
+                with timer.span("synthesis"):
+                    a_perm, s_perm = _permute_pair(mont_to_ints(a_rows)[:usable],
+                                                   mont_to_ints(s_rows)[:usable])
+                a_perm = a_perm + [rand_fr() for _ in range(n - usable)]
+                s_perm = s_perm + [rand_fr() for _ in range(n - usable)]
+                per_proof.append(dict(a_rows=a_rows, s_rows=s_rows,
+                                      a_perm=to_mont(a_perm),
+                                      s_perm=to_mont(s_perm)))
+            lookups_data.append(per_proof)
+
+        for p in range(num_proofs):
+            for lk in lookups_data[p]:
+                lk["a_coeff"] = intt(lk["a_perm"])
+                lk["s_coeff"] = intt(lk["s_perm"])
+                transcript.write_point(commit(lk["a_coeff"]))
+                transcript.write_point(commit(lk["s_coeff"]))
+
+        beta = transcript.squeeze_challenge()
+        gamma = transcript.squeeze_challenge()
+        beta_b = scalar(beta)
+        gamma_b = scalar(gamma)
+
+        # -- 4. permutation z polynomials (log-depth grand products) --------
+        chunk_len = cs.permutation_chunk_len()
+        perm_cols = cs.permutation_columns
+        omega_pows = mont_powers(domain.omega, n, dev)
+
+        def col_rows(col, p):
+            if col.kind == "advice":
+                return advice_lagrange[p][col.index]
+            if col.kind == "fixed":
+                return apk.fixed_lagrange[col.index]
+            return instance_lagrange[p][col.index]
+
+        def grand_product(num, den, z0: int, tail_draws: list[int]):
+            """z[0] = z0, z[i+1] = z[i] num[i] / den[i] for i < usable, then
+            the random tail; returns (z, z[usable] as an int)."""
+            cp = m_mul(_cumprod_mont(m_mul(num, _batch_inv(den))), scalar(z0))
+            z = torch.cat([mont_scalar(z0, dev), cp[:usable]])
+            z_last = mont_to_ints(z[usable : usable + 1])[0]
+            if tail_draws:
+                z = torch.cat([z, to_mont(tail_draws)])
+            assert z.shape[0] == n
+            return z, z_last
+
+        usable_mask = torch.arange(n, device=dev) < usable
+
+        perm_z = []  # [proof][set] Lagrange
+        for p in range(num_proofs):
+            sets = []
+            last_z = 1
+            for chunk_idx in range(0, len(perm_cols), chunk_len):
+                chunk = perm_cols[chunk_idx : chunk_idx + chunk_len]
+                num = one_v
+                den = one_v
+                for j, col in enumerate(chunk):
+                    v = col_rows(col, p)
+                    sigma = apk.sigmas_lagrange[chunk_idx + j]
+                    do = m_mul(omega_pows,
+                               scalar(pow(FR_DELTA, chunk_idx + j, R)))
+                    num = m_mul(num, m_add(v, m_add(m_mul(beta_b, do), gamma_b)))
+                    den = m_mul(den, m_add(v, m_add(m_mul(beta_b, sigma), gamma_b)))
+                # mask the blinded tail out of the product (den = num = 1)
+                num = m_select(usable_mask, num, one_v)
+                den = m_select(usable_mask, den, one_v)
+                tail = [rand_fr() for _ in range(n - usable - 1)]
+                z, last_z = grand_product(num, den, last_z, tail)
+                sets.append(z)
+            perm_z.append(sets)
+
+        perm_z_coeff = [[intt(z) for z in sets] for sets in perm_z]
+        for p in range(num_proofs):
+            for zc in perm_z_coeff[p]:
+                transcript.write_point(commit(zc))
+
+        # -- 5. lookup z polynomials ------------------------------------------
+        for p in range(num_proofs):
+            for lk in lookups_data[p]:
+                num = m_mul(m_add(lk["a_rows"], beta_b), m_add(lk["s_rows"], gamma_b))
+                den = m_mul(m_add(lk["a_perm"], beta_b), m_add(lk["s_perm"], gamma_b))
+                num = m_select(usable_mask, num, one_v)
+                den = m_select(usable_mask, den, one_v)
+                tail = [rand_fr() for _ in range(n - usable - 1)]
+                lk["z"], _ = grand_product(num, den, 1, tail)
+        for p in range(num_proofs):
+            for lk in lookups_data[p]:
+                lk["z_coeff"] = intt(lk["z"])
+                transcript.write_point(commit(lk["z_coeff"]))
+
+        # -- 6. vanishing random poly ---------------------------------------
+        random_poly = to_mont([rand_fr() for _ in range(n)])
+        transcript.write_point(commit(random_poly))
+
+        y = transcript.squeeze_challenge()
+
+        # -- 7. quotient h via coset-sharded evaluation ---------------------
+        with timer.span("quotient"):
+            h_chunks = _compute_h_sharded(
+                apk, num_proofs, advice_coeff, instance_coeff, lookups_data,
+                perm_z_coeff, challenge_list, theta, beta, gamma, y, dev,
+                ntt_fn=lambda a, inverse: (intt(a) if inverse else ntt(a)))
+        qd = vk.quotient_poly_degree()
+        assert len(h_chunks) >= qd
+        h_pieces = h_chunks[:qd]
+        for piece in h_pieces:
+            transcript.write_point(commit(piece))
+
+        x = transcript.squeeze_challenge()
+        xn_b = scalar(pow(x, n, R))
+        h_folded = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+        for piece in reversed(h_pieces):
+            h_folded = m_add(m_mul(h_folded, xn_b), piece)
+
+    with timer.span("open"):
+        # -- 8. evaluations -------------------------------------------------
+        def poly_for(ref: tuple):
+            kind = ref[0]
+            if kind == "instance":
+                return instance_coeff[ref[1]][ref[2]]
+            if kind == "advice":
+                return advice_coeff[ref[1]][ref[2]]
+            if kind == "perm_z":
+                return perm_z_coeff[ref[1]][ref[2]]
+            if kind == "lookup_z":
+                return lookups_data[ref[1]][ref[2]]["z_coeff"]
+            if kind == "lookup_a":
+                return lookups_data[ref[1]][ref[2]]["a_coeff"]
+            if kind == "lookup_s":
+                return lookups_data[ref[1]][ref[2]]["s_coeff"]
+            if kind == "fixed":
+                return apk.fixed_coeff[ref[1]]
+            if kind == "sigma":
+                return apk.sigmas_coeff[ref[1]]
+            if kind == "h":
+                return h_folded
+            if kind == "random":
+                return random_poly
+            raise KeyError(ref)
+
+        powers_cache: dict = {}
+
+        def ev(poly, z: int) -> int:
+            if z not in powers_cache:
+                powers_cache[z] = mont_powers(z, n, dev)
+            return _eval_at(poly, powers_cache[z])
+
+        for p in range(num_proofs):
+            for (col, rot) in cs.instance_queries:
+                transcript.write_scalar(ev(instance_coeff[p][col],
+                                           domain.rotate_omega(x, rot)))
+        for p in range(num_proofs):
+            for (col, rot) in cs.advice_queries:
+                transcript.write_scalar(ev(advice_coeff[p][col],
+                                           domain.rotate_omega(x, rot)))
+        for (col, rot) in cs.fixed_queries:
+            transcript.write_scalar(ev(apk.fixed_coeff[col],
+                                       domain.rotate_omega(x, rot)))
+        transcript.write_scalar(ev(random_poly, x))
+        for s in apk.sigmas_coeff:
+            transcript.write_scalar(ev(s, x))
+        x_next = domain.rotate_omega(x, 1)
+        x_last = domain.rotate_omega(x, -(bf + 1))
+        for p in range(num_proofs):
+            nsets = len(perm_z_coeff[p])
+            for s_idx, zc in enumerate(perm_z_coeff[p]):
+                transcript.write_scalar(ev(zc, x))
+                transcript.write_scalar(ev(zc, x_next))
+                if s_idx + 1 < nsets:
+                    transcript.write_scalar(ev(zc, x_last))
+        x_inv = domain.rotate_omega(x, -1)
+        for p in range(num_proofs):
+            for lk in lookups_data[p]:
+                transcript.write_scalar(ev(lk["z_coeff"], x))
+                transcript.write_scalar(ev(lk["z_coeff"], x_next))
+                transcript.write_scalar(ev(lk["a_coeff"], x))
+                transcript.write_scalar(ev(lk["a_coeff"], x_inv))
+                transcript.write_scalar(ev(lk["s_coeff"], x))
+
+        v = transcript.squeeze_challenge()
+        v_b = scalar(v)
+
+        # -- 9. GWC multiopen: NTT-form Kate division per rotation set ------
+        plan = query_plan(vk, num_proofs)
+        for rot, refs in rotation_sets(plan):
+            z = domain.rotate_omega(x, rot)
+            q = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+            for ref in reversed(refs):
+                q = m_add(m_mul(q, v_b), poly_for(ref))
+            qz = ev(q, z)
+            # w(omega^i) = (q(omega^i) - q(z)) / (omega^i - z)
+            den = m_sub(omega_pows, scalar(z))
+            w_lag = m_mul(m_sub(ntt(q), scalar(qz)), _batch_inv(den))
+            transcript.write_point(commit(intt(w_lag)))
+
+    return transcript.finalize()
+
+
+# ---------------------------------------------------------------------------
+# Coset-sharded quotient evaluation
+# ---------------------------------------------------------------------------
+
+
+def _compute_h_sharded(
+    apk: AccelPk, num_proofs: int, advice_coeff, instance_coeff,
+    lookups_data, perm_z_coeff, challenges: list[int],
+    theta: int, beta: int, gamma: int, y: int, dev, ntt_fn,
+) -> list[torch.Tensor]:
+    """The quotient's coefficient chunks [h_0 .. h_{ratio-1}] (each (n, 8)
+    Montgomery), low chunk first, one size-n coset shard at a time.
+
+    Shard s holds evaluations at {zeta w_ext^s omega^t}_t. A rotation by
+    `rot` rows is a roll by -rot within the shard; the vanishing polynomial
+    X^n - 1 is the constant zeta^n w_ext^{sn} - 1 on shard s. `ntt_fn(a,
+    inverse)` runs every size-n NTT."""
+    vk = apk.vk
+    cs = vk.cs
+    domain = apk.domain
+    k, n = domain.k, domain.n
+    bf = cs.blinding_factors()
+    usable = n - (bf + 1)
+    chunk_len = cs.permutation_chunk_len()
+    ratio = 1  # coset shards: the least power of two >= deg - 1
+    while ratio < max(cs.degree() - 1, 1):
+        ratio *= 2
+    k_ext = k + (ratio.bit_length() - 1)
+    w_ext = omega_for_k(k_ext)
+    zeta = FR_GENERATOR
+    assert pow(zeta, 1 << k_ext, R) != 1
+
+    def scalar(v: int) -> torch.Tensor:
+        return _bcast(mont_scalar(v, dev), n)
+
+    def indicator(rows) -> torch.Tensor:
+        e = [0] * n
+        for r in rows:
+            e[r] = 1
+        return ntt_fn(ints_to_mont(e, dev), True)
+
+    # l0 / l_last / l_blind coefficient forms
+    l0_c = indicator([0])
+    ll_c = indicator([usable])
+    lb_c = indicator(range(usable + 1, n))
+
+    y_b = scalar(y)
+    theta_b = scalar(theta)
+    beta_b = scalar(beta)
+    gamma_b = scalar(gamma)
+    one_b = scalar(1)
+
+    x_poly_c = ints_to_mont([0, 1] + [0] * (n - 2), dev)  # p(X) = X
+
+    def roll(arr, rot):
+        return torch.roll(arr, -rot, dims=0) if rot else arr
+
+    shards = []  # F_s = INTT(shard evals of h)
+    for s in range(ratio):
+        coset = zeta * pow(w_ext, s, R) % R
+        coset_pows = mont_powers(coset, n, dev)
+        # keyed by id, holding the column itself: a cached id can never be
+        # taken by another tensor while its entry lives
+        ext_cache: dict = {}
+
+        def ext(coeff_arr):
+            key = id(coeff_arr)
+            if key not in ext_cache:
+                ext_cache[key] = (coeff_arr,
+                                  ntt_fn(m_mul(coeff_arr, coset_pows), False))
+            return ext_cache[key][1]
+
+        l0_e = ext(l0_c)
+        ll_e = ext(ll_c)
+        lb_e = ext(lb_c)
+        active = m_sub(one_b, m_add(ll_e, lb_e))  # 1 - (l_last + l_blind)
+
+        acc = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+
+        def fold(e):
+            nonlocal acc
+            acc = m_add(m_mul(acc, y_b), e)
+
+        for p in range(num_proofs):
+            def expr_ext(e: Expression):
+                return e.evaluate(
+                    constant=scalar,
+                    fixed=lambda q: roll(ext(apk.fixed_coeff[cs.fixed_queries[q][0]]),
+                                         cs.fixed_queries[q][1]),
+                    advice=lambda q: roll(ext(advice_coeff[p][cs.advice_queries[q][0]]),
+                                          cs.advice_queries[q][1]),
+                    instance=lambda q: roll(
+                        ext(instance_coeff[p][cs.instance_queries[q][0]]),
+                        cs.instance_queries[q][1]),
+                    challenge=lambda i: scalar(challenges[i]),
+                    neg=lambda a: m_sub(torch.zeros_like(a), a),
+                    add=m_add,
+                    mul=m_mul,
+                    scale=lambda a, sc: m_mul(a, scalar(sc)),
+                )
+
+            # gates
+            for _, polys in cs.gates:
+                for g in polys:
+                    fold(expr_ext(g))
+
+            # permutation expressions
+            sets_e = [ext(zc) for zc in perm_z_coeff[p]]
+            if sets_e:
+                z0 = sets_e[0]
+                fold(m_mul(l0_e, m_sub(one_b, z0)))
+                zl = sets_e[-1]
+                fold(m_mul(ll_e, m_sub(m_mul(zl, zl), zl)))
+                for s_idx in range(1, len(sets_e)):
+                    prev_rot = roll(sets_e[s_idx - 1], -(bf + 1))
+                    fold(m_mul(m_sub(sets_e[s_idx], prev_rot), l0_e))
+                omega_do = ext(x_poly_c)  # evaluations of the poly X
+                for chunk_idx0, chunk_start in enumerate(
+                        range(0, len(cs.permutation_columns), chunk_len)):
+                    chunk = cs.permutation_columns[chunk_start : chunk_start + chunk_len]
+                    zc_e = sets_e[chunk_idx0]
+                    left = roll(zc_e, 1)
+                    right = zc_e
+                    delta_pow = pow(FR_DELTA, chunk_idx0 * chunk_len, R)
+                    for j, col in enumerate(chunk):
+                        qidx = cs.get_any_query_index(col, 0)
+                        if col.kind == "advice":
+                            vp = ext(advice_coeff[p][cs.advice_queries[qidx][0]])
+                        elif col.kind == "fixed":
+                            vp = ext(apk.fixed_coeff[cs.fixed_queries[qidx][0]])
+                        else:
+                            vp = ext(instance_coeff[p][cs.instance_queries[qidx][0]])
+                        sigma_e = ext(apk.sigmas_coeff[chunk_start + j])
+                        left = m_mul(left, m_add(
+                            vp, m_add(m_mul(beta_b, sigma_e), gamma_b)))
+                        dx = m_mul(omega_do, scalar(beta * delta_pow % R))
+                        right = m_mul(right, m_add(vp, m_add(dx, gamma_b)))
+                        delta_pow = delta_pow * FR_DELTA % R
+                    fold(m_mul(m_sub(left, right), active))
+
+            # lookup expressions
+            for lk_idx, lk in enumerate(lookups_data[p]):
+                arg = cs.lookups[lk_idx]
+                zc_e = ext(lk["z_coeff"])
+                ac_e = ext(lk["a_coeff"])
+                sc_e = ext(lk["s_coeff"])
+                z_next = roll(zc_e, 1)
+                a_prev = roll(ac_e, -1)
+                input_e = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+                for e in arg.input_expressions:
+                    input_e = m_add(m_mul(input_e, theta_b), expr_ext(e))
+                table_e = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+                for e in arg.table_expressions:
+                    table_e = m_add(m_mul(table_e, theta_b), expr_ext(e))
+                fold(m_mul(l0_e, m_sub(one_b, zc_e)))
+                fold(m_mul(ll_e, m_sub(m_mul(zc_e, zc_e), zc_e)))
+                left = m_mul(z_next, m_mul(m_add(ac_e, beta_b), m_add(sc_e, gamma_b)))
+                right = m_mul(zc_e, m_mul(m_add(input_e, beta_b),
+                                          m_add(table_e, gamma_b)))
+                fold(m_mul(m_sub(left, right), active))
+                a_minus_s = m_sub(ac_e, sc_e)
+                fold(m_mul(l0_e, a_minus_s))
+                fold(m_mul(m_mul(a_minus_s, m_sub(ac_e, a_prev)), active))
+
+        # divide by the vanishing constant zeta^n w_ext^{sn} - 1
+        vanish = (pow(zeta, n, R) * pow(w_ext, s * n, R) - 1) % R
+        shards.append(ntt_fn(m_mul(acc, scalar(pow(vanish, -1, R))), True))
+
+    # recombine shards into coefficient chunks:
+    # F_s[m] = w_ext^{sm} sum_u d[m,u] phi^{su}, phi = w_ext^n,
+    # d[m,u] = c[m+un] zeta^(m+un)
+    phi = pow(w_ext, n, R)
+    g_vecs = []
+    for s in range(ratio):
+        ws_inv = pow(pow(w_ext, s, R), -1, R) if s else 1
+        g_vecs.append(m_mul(shards[s], mont_powers(ws_inv, n, dev)))
+    ratio_inv = pow(ratio, -1, R)
+    zeta_inv = pow(zeta, -1, R)
+    zeta_inv_pows = mont_powers(zeta_inv, n, dev)
+    chunks = []
+    for u in range(ratio):
+        d_u = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
+        for s in range(ratio):
+            w = pow(pow(phi, s * u, R), -1, R) * ratio_inv % R
+            d_u = m_add(d_u, m_mul(g_vecs[s], scalar(w)))
+        # c[m+un] = d[m,u] zeta^{-(m+un)}
+        c_u = m_mul(m_mul(d_u, zeta_inv_pows), scalar(pow(zeta_inv, u * n, R)))
+        chunks.append(c_u)
+    return chunks

@@ -10,12 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_snark_aggregator_tpu.ff import bn254 as ff
+from halo2_snark_aggregator_tpu_torch.circuits.zkevm import ZkevmShapeCircuit
+from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
 from halo2_snark_aggregator_tpu_torch.kernels import build
 from halo2_snark_aggregator_tpu_torch.ops import curve as cv
 from halo2_snark_aggregator_tpu_torch.ops import field as fo
 from halo2_snark_aggregator_tpu_torch.ops import msm as pm
+from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
 from halo2_snark_aggregator_tpu_torch.ops import poseidon as po
+from halo2_snark_aggregator_tpu_torch.prover import accel
+from halo2_snark_aggregator_tpu_torch.prover.kzg import ParamsKZG
+from halo2_snark_aggregator_tpu_torch.transcript.host import PoseidonWrite
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +36,7 @@ def _rand(spec, shape, seed, device):
     rng = np.random.default_rng(seed)
     n = int(np.prod(shape))
     vals = [int.from_bytes(rng.bytes(32), "little") % spec.modulus for _ in range(n)]
-    vals[:3] = [0, 1, spec.modulus - 1]
+    vals = ([0, 1, spec.modulus - 1] + vals[3:])[:n]
     return fo.mont_words(spec, vals, device).reshape(*shape, 8)
 
 
@@ -101,3 +106,64 @@ def test_msm_kernels_match_twins(cuda, c):
     assert torch.equal(tot, pm.reduce_plain(acc, windows, nb))
     got = pm.combine_windows_host(tuple(tot[:, i] for i in range(3)), c)
     assert got == ff.g1_msm(pts, scal)
+
+
+def test_padd_kernel_matches_twin(cuda):
+    rng = np.random.default_rng(11)
+    pts = [ff.g1_mul(ff.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(200)]
+    a = pts + [None, pts[0], None, pts[1], pts[2]]
+    b = pts[::-1] + [pts[3], None, None, pts[1], ff.g1_neg(pts[2])]
+    pa = torch.stack(cv.from_affine_ints(a, cuda), dim=1)
+    pb = torch.stack(cv.from_affine_ints(b, cuda), dim=1)
+    before = build.LAUNCHES["curve_padd"]
+    got = cv.padd(pa, pb)
+    assert build.LAUNCHES["curve_padd"] == before + 1
+    assert torch.equal(got, cv.padd_plain(pa, pb))
+    twice = cv.padd(got, got)  # projective inputs (z != 1)
+    assert torch.equal(twice, cv.padd_plain(got, got))
+    assert cv.to_affine_ints(got.unbind(1)) == [ff.g1_add(p, q)
+                                                for p, q in zip(a, b)]
+
+
+@pytest.mark.parametrize("half", [1, 8, 512])
+def test_ntt_butterfly_matches_twin(cuda, half):
+    x = _rand(fo.FR, (1 << 11,), 12, cuda)
+    tw = _rand(fo.FR, (half,), 13, cuda)
+    k, p = x.clone(), x.clone()
+    before = build.LAUNCHES["ntt_butterfly"]
+    pn.butterfly(k, tw, half)
+    assert build.LAUNCHES["ntt_butterfly"] == before + 1
+    pn.butterfly_plain(p, tw, half)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+
+
+def test_ntt_scale_and_transform(cuda):
+    k = 10
+    x = _rand(fo.FR, (1 << k,), 14, cuda)
+    c = pn._plan(k, True)[2]
+    before = build.LAUNCHES["ntt_scale"]
+    assert torch.equal(pn.scale(x, c), pn.scale_plain(x, c))
+    assert build.LAUNCHES["ntt_scale"] == before + 1
+    fwd = pn.ntt_auto(x, k)
+    assert torch.equal(fwd.cpu(), pn.ntt_auto(x.cpu(), k))
+    assert torch.equal(pn.ntt_auto(fwd, k, inverse=True), x)
+
+
+def test_zkevm_k7_proof_on_card(cuda):
+    """keygen and proof on the card with device commits (window 8) write
+    the bytes of the CPU run with host commits."""
+    k = 7
+
+    def circuit(seed):
+        return ZkevmShapeCircuit(k=k, seed=seed, n_groups=2, table_bits=6)
+
+    params = ParamsKZG.unsafe_setup(k)
+    proofs = []
+    for dev, mode in (("cpu", "host"), (cuda, "device")):
+        ap = accel.AccelParams.from_params(params, mode, device=dev)
+        _vk, apk = accel.keygen_accel(circuit(1), k, ap)
+        c = circuit(2)
+        proofs.append(accel.create_proof_accel(apk, ap, [c], [c.instances()],
+                                               PoseidonWrite(), seed=3))
+    assert proofs[0] == proofs[1]

@@ -1,6 +1,6 @@
 """Port-wide contracts: no jax anywhere in the port, CUDA requested means
 CUDA or an error, the kernel build raises instead of falling back, and the
-fixture cache writes atomically."""
+SRS cache writes atomically."""
 
 import json
 import os
@@ -15,6 +15,7 @@ import torch
 from halo2_snark_aggregator_tpu_torch import device as dv
 from halo2_snark_aggregator_tpu_torch import fixtures
 from halo2_snark_aggregator_tpu_torch.kernels import build
+from halo2_snark_aggregator_tpu_torch.prover import srs
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "halo2_snark_aggregator_tpu_torch"
@@ -32,12 +33,15 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port loads neither jax nor any module
+    of the JAX package."""
     mods = _port_modules()
     assert "halo2_snark_aggregator_tpu_torch.protocol.batched" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m.split('.')[0] == 'halo2_snark_aggregator_tpu')\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -70,7 +74,8 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_build_digest_covers_every_source():
     names = {p.name for p in build._sources()}
-    assert {"field.cu", "field.cuh", "poseidon.cu", "msm.cu"} <= names
+    assert {"field.cu", "field.cuh", "poseidon.cu", "msm.cu", "curve.cu",
+            "curve.cuh", "ntt.cu"} <= names
     assert len(build.source_digest()) == 16
     assert set(build.LAUNCHES) == set(build.KERNELS)
 
@@ -88,18 +93,23 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-def test_cache_writes_atomically(tmp_path):
+def test_cache_writes_atomically(tmp_path, monkeypatch):
+    """The SRS cache is made once, moved into place whole, and read back."""
     calls = []
+    make = srs.unsafe_setup_accel
 
-    def make():
+    def counted(*args, **kwargs):
         calls.append(1)
-        return {"v": 7}
+        return make(*args, **kwargs)
 
-    path = tmp_path / "sub" / "x.pkl"
-    assert fixtures._cached(path, make) == ({"v": 7}, False)
-    assert fixtures._cached(path, make) == ({"v": 7}, True)
+    monkeypatch.setattr(srs, "unsafe_setup_accel", counted)
+    cache = tmp_path / "sub"
+    first = srs.setup_cached_accel(2, cache_dir=cache, device="cpu")
+    again = srs.setup_cached_accel(2, cache_dir=cache, device="cpu")
     assert calls == [1]
-    assert [p.name for p in path.parent.iterdir()] == ["x.pkl"]
+    assert [p.name for p in cache.iterdir()] == ["accel_params_k2.npz"]
+    assert torch.equal(first.g_dev, again.g_dev)
+    assert first.g_lagrange == again.g_lagrange
 
 
 def test_k16_fixture_files():
