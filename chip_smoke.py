@@ -5,22 +5,29 @@
 Phases (each prints one line; any failure raises and exits nonzero):
   1. device: the card's name, power limit and top SM clock; no CUDA -> exit 2;
   2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc
-     (one nvcc per source, in parallel), g++ the native host library;
+     (one nvcc per source, in parallel), g++ the native host library; the
+     registers and spill bytes of the sponge-chain and reduce kernels from
+     ptxas;
   3. setup + keygen: the K=16 SRS (fixed-base add tree) and the zkevm-shape
      key built on the card, device commits, fingerprint checked; launch
      counts read for that path;
   4. kernel vs plain twin, at the main paths' shapes, exact equality: field
      mul/add/sub (the verifier's widest tape level x 128 lanes and the
      prover's 2^16-element polynomials), pow (Fr inversions, Fq square
-     roots), Poseidon (128 states), MSM accumulate and reduce at one commit
-     of the prover (2^16 SRS points, c=8; the total against the native MSM),
+     roots), 4b the Poseidon sponge chain on the verifier's call table at
+     128 lanes (the whole chain in one launch against the twin run on the
+     CPU, then timed) and one call alone, 4c MSM accumulate and reduce at one
+     commit of the prover (2^16 SRS points, c=8; the total against the
+     native MSM),
      4d padd on 2^14 special pairs (identities, doubling, inverse) and on
      every level of the SRS add tree (2^20 .. 2^16 pairs), 4e NTT butterfly
      and scale at k=16 (forward == native fr_ntt, inverse(forward) == input);
   5. parity: the batched verifier over the 4 committed proofs must give the
      host value-context oracle's (w_x, w_g) and pass;
   6. main verify path: batch 128 (4 proofs tiled 32x), one warm and REPS
-     timed verifies, with every kernel of the path launched;
+     timed verifies, with every kernel of the path launched and the sponge
+     chain launched once a verify; then one verify under torch.profiler
+     (device busy share, device time by kernel);
   7. negative: one flipped transcript-scalar byte must fail the verify;
   8. prove: fixture proof 0 made on the card with device commits must equal
      the committed bytes; stage split, launches, commit loads, the host vs
@@ -28,8 +35,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
      fixtures 1-3 through the batch-4 verifier, equal to the oracle.
 Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
-rate for short kernels; the twin's time and the bound; and the launches on
-each path), the nvidia-smi line, and the final JSON line
+rate for short kernels; the twin's time and the bound; the launches on each
+path; for the two redesigned kernels, their registers and spills from ptxas
+and, for the sponge, the whole chain's times), the nvidia-smi line, and the
+final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
 """
@@ -41,12 +50,14 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 20261016
 REPS = 3
+PROFILE_TRIES = 3       # profiles of one kernel before its time counts as lost
 PADD_PAIRS = 1 << 14    # special cases: identities, P + P, P + (-P)
 PLAIN_CHUNK = 1 << 18   # rows per call of a twin at the prover's sizes
 NTT_K = 16
@@ -70,6 +81,7 @@ KERNEL_SOURCES = {
     "ntt_butterfly": ("ntt.cu", "ops/ntt_pallas.py:168"),
     "ntt_scale": ("ntt.cu", "ops/ntt_pallas.py:179"),
 }
+PTXAS_SYMBOL = {"poseidon": "poseidon_chain_kernel", "msm_reduce": "reduce_kernel"}
 PATH_KERNELS = {
     "setup_keygen": ("curve_padd", "field", "ntt_butterfly", "ntt_scale",
                      "msm_accumulate", "msm_reduce"),
@@ -101,25 +113,29 @@ def cuda_ms(fn, reps: int) -> float:
 def kernel_ms(fn, symbol: str, reps: int) -> float:
     """Device ms per launch of the CUDA function `symbol` over `reps` runs
     of `fn` after one warm run: torch.profiler's device time, which the
-    host's launch rate does not hold back."""
+    host's launch rate does not hold back. A profile that records no device
+    time for `symbol` (the card's tracer drops one now and then) is taken
+    again, up to PROFILE_TRIES times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     pat = re.compile(r"(^|\s)h2t::" + symbol + r"[<(]")  # csrc's namespace
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if pat.search(ev.key):
-            total_us += (getattr(ev, "self_device_time_total", 0)
-                         or getattr(ev, "self_cuda_time_total", 0))
-            count += ev.count
-    if not count or total_us <= 0:
-        raise AssertionError(f"torch.profiler saw no device time for {symbol}")
-    return total_us / 1e3 / count
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if pat.search(ev.key):
+                total_us += (getattr(ev, "self_device_time_total", 0)
+                             or getattr(ev, "self_cuda_time_total", 0))
+                count += ev.count
+        if count and total_us > 0:
+            return total_us / 1e3 / count
+    raise AssertionError(f"torch.profiler saw no device time for {symbol} "
+                         f"in {PROFILE_TRIES} profiles")
 
 
 def timed(fn, symbol: str, reps: int) -> dict:
@@ -286,6 +302,31 @@ def check_field(dev, rng, bv, bound, results):
         bound=bound(n_poly * 96, n_poly * MONT_MUL_IMAD))
 
 
+def poseidon_depth(one_thread: bool = False) -> int:
+    """Dependent steps (one 256 x 256-bit product or one REDC each) on a
+    state's critical path through one permutation. With one thread per
+    state, a full round's 9 S-boxes run one after another, then 81 products
+    and 9 REDCs; with a thread per element (csrc/poseidon.cu) a round is one
+    S-box (3 Montgomery products), 9 products and 1 REDC."""
+    from halo2_snark_aggregator_tpu_torch.hashes import poseidon_spec as pspec
+
+    t, sbox = pspec.T, 3 * 2
+    if one_thread:
+        full, partial = t * sbox + t * t + t, sbox + t * t + t
+    else:
+        full = partial = sbox + t + 1
+    return pspec.R_F * full + pspec.R_P * partial
+
+
+def reduce_depth(nbuckets: int) -> int:
+    """Dependent complete adds on a window's critical path in the scan
+    reduce (csrc/msm.cu): 3 (L - 1) + 2 ceil(log2 T)."""
+    from halo2_snark_aggregator_tpu_torch.ops import msm as pm
+
+    nt, seg = pm.reduce_shape(nbuckets)
+    return 3 * (seg - 1) + 2 * (nt - 1).bit_length()
+
+
 def poseidon_imads() -> int:
     """IMADs of one T=9 permutation: x^5 is 3 products; the MDS is 81 wide
     products and one REDC per output (csrc/poseidon.cu)."""
@@ -298,31 +339,52 @@ def poseidon_imads() -> int:
     return pspec.R_F * full + pspec.R_P * partial
 
 
-def check_poseidon(dev, rng, bound, results):
+def check_poseidon(dev, rng, bv, bound, results):
+    """The sponge-chain kernel on the verifier's own call table at its batch
+    (the compiled tape of phase 6): the whole chain in one launch against
+    the twin run on the CPU (where its many small ops run faster), then
+    timed; then one call alone, two absorb cases against the twin on the
+    card, the first timed (the kernel's `ms` and the twin's `plain_ms`)."""
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import poseidon as po
 
-    lanes = 128
-    base = rand_field(fo.FR, (26, lanes), rng, dev)
-    st = torch.arange(9, dtype=torch.int32, device=dev)
-    ins = torch.arange(9, 17, dtype=torch.int32, device=dev)
-    out = torch.arange(17, 26, dtype=torch.int32, device=dev)
-    errs, times = [], []
+    chain, lanes = bv.run_tape.sponge, bv.batch
+    n_calls = chain.n_in.shape[0]
+    base = rand_field(fo.FR, (bv.run_tape.n_slots, lanes), rng, dev)
+    buf_k, buf_p = base.clone(), base.cpu()
+    po.sponge_chain(buf_k, chain)
+    po.sponge_chain_plain(buf_p, po.SpongeChain(*(t.cpu() for t in chain)))
+    errs = [max_abs_err(buf_k.cpu(), buf_p)]
+    t_chain = timed(lambda: po.sponge_chain(buf_k, chain),
+                    "poseidon_chain_kernel", 5)
+    one = rand_field(fo.FR, (26, lanes), rng, dev)
+    times = []
     for n_in, pad in ((8, -1), (3, 4)):
-        buf_k, buf_p = base.clone(), base.clone()
-        times.append((timed(lambda: po.sponge_call(buf_k, st, ins, n_in, pad, out),
-                            "poseidon_kernel", 10),
-                      cuda_ms(lambda: po.sponge_call_plain(buf_p, st, ins, n_in, pad, out), 1)))
+        call = po.chain_table([range(9)], [range(9, 17)], [n_in], [pad],
+                              [range(17, 26)], dev)
+        buf_k, buf_p = one.clone(), one.clone()
+        po.sponge_chain(buf_k, call)
+        _out, plain_ms = once_ms(lambda: po.sponge_chain_plain(buf_p, call))
         errs.append(max_abs_err(buf_k, buf_p))
+        times.append((timed(lambda: po.sponge_chain(buf_k, call),
+                            "poseidon_chain_kernel", 10), plain_ms))
     err = max(errs)
     if err:
         raise AssertionError(f"poseidon kernel differs from its twin: {err}")
-    t, t_plain = times[0]
-    phase("4b poseidon", f"exact over {lanes} states; kernel {t['ms']:.4f} ms "
-          f"device, {t['launch_ms']:.4f} ms launch (plain {t_plain:.2f} ms) per call")
-    results["poseidon"] = dict(max_abs_err=err, plain_ms=t_plain, **t,
-                               shape=f"{lanes} states",
-                               bound=bound(lanes * 26 * 32, lanes * poseidon_imads()))
+    t, plain_ms = times[0]
+    phase("4b poseidon", f"exact on all {n_calls} of the verifier's calls x "
+          f"{lanes} lanes (one launch against the twin on the CPU) and on one "
+          f"call (8 inputs; 3 inputs + pad); whole chain {t_chain['ms']:.4f} "
+          f"ms device in one launch ({t_chain['ms'] / n_calls:.4f} ms a call, "
+          f"{t_chain['launch_ms']:.4f} ms launch); one call {t['ms']:.4f} ms "
+          f"device, {t['launch_ms']:.4f} ms launch (plain {plain_ms:.2f} ms); "
+          f"depth {poseidon_depth()} steps a call (one thread a state: "
+          f"{poseidon_depth(one_thread=True)})")
+    results["poseidon"] = dict(
+        max_abs_err=err, plain_ms=plain_ms, **t, chain_calls=n_calls,
+        chain_ms=t_chain["ms"], chain_launch_ms=t_chain["launch_ms"],
+        shape=f"one call, {lanes} states (chain: {n_calls} calls a launch)",
+        bound=bound(lanes * 26 * 32, lanes * poseidon_imads()))
 
 
 def check_msm(dev, rng, params, bound, results):
@@ -357,7 +419,8 @@ def check_msm(dev, rng, params, bound, results):
     phase("4c msm", f"exact over {n} points, c={c}, max bucket load "
           f"{int(plan[2].max())}; total == native g1_msm; accumulate "
           f"{ta[0]['ms']:.3f} ms (plain {ta[1]:.1f} ms), reduce "
-          f"{tr[0]['ms']:.3f} ms (plain {tr[1]:.1f} ms), device time")
+          f"{tr[0]['ms']:.3f} ms (plain {tr[1]:.1f} ms, depth "
+          f"{reduce_depth(nb)} adds, serial sweep {2 * (nb - 1)}), device time")
     lanes = windows * nb
     results["msm_accumulate"] = dict(
         max_abs_err=err_a, plain_ms=ta[1], **ta[0],
@@ -554,9 +617,14 @@ def main() -> int:
     t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the native host library did not build")
+    usage = build.ptxas_usage(Path(build.BUILD_INFO["ptxas_log"]).read_text())
+    ptxas = {k: usage[k] for k in PTXAS_SYMBOL.values()}
     phase("2 build", f"nvcc {t_nvcc:.1f} s (sm_90a, one nvcc per source, "
           f"built={build.BUILD_INFO['built']}); g++ native "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; ptxas: " + ", ".join(
+              f"{k} {u['registers']} registers, {u['stack']} B stack, "
+              f"{u['spill_stores']}/{u['spill_loads']} B spill stores/loads"
+              for k, u in ptxas.items()))
 
     paths: dict[str, dict] = {}
 
@@ -585,7 +653,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     results: dict = {}
     check_field(dev, rng, bv, bound, results)
-    check_poseidon(dev, rng, bound, results)
+    check_poseidon(dev, rng, bv, bound, results)
     check_msm(dev, rng, params, bound, results)
     check_padd(dev, rng, params, bound, results)
     check_ntt(dev, rng, bound, results)
@@ -613,13 +681,21 @@ def main() -> int:
             raise AssertionError("batch-128 timed verify failed")
     dt = (time.perf_counter() - t0) / REPS
     read_path("verify")
+    if paths["verify"]["poseidon"] != REPS + 1:
+        raise AssertionError(f"{paths['verify']['poseidon']} sponge launches "
+                             f"over {REPS + 1} verifies, want one a verify")
     stages = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in bv.last_profile.items())
+    prof = dv.profile_device(lambda: bv.verify(proofs, insts), dev)
+    top = ", ".join(f"{re.sub(r'[(<].*', '', k)} {c['count']}x {c['s'] * 1e3:.2f}ms"
+                    for k, c in list(prof["by_kernel"].items())[:5])
     phase("6 main", f"batch {bv.batch} K=16 zkevm-shape: {bv.batch / dt:.2f} "
           f"proofs/s ({dt:.3f} s/verify) on {card}; record {record_s:.1f} s; "
           f"launches over {REPS + 1} verifies {paths['verify']}; "
           f"{len(bv.tape.records)} tape records, "
           f"{sum(len(e) for e, _ in bv.msm_plans)} MSM entries/lane; "
-          f"stages: {stages}")
+          f"stages: {stages}; one more verify under torch.profiler: device "
+          f"busy {prof['device_busy_s'] * 1e3:.2f} ms of {prof['wall_s']:.3f} s "
+          f"({prof['device_busy_share']:.1%}); by kernel: {top}")
 
     off = next(ref for kind, ref in bv.manifest if kind == "scalar")
     bad = list(proofs)
@@ -668,7 +744,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": r["shape"]})
+            "bound_by": bound_by, "library_ms": None, "shape": r["shape"],
+            **{k: r[k] for k in ("chain_calls", "chain_ms", "chain_launch_ms")
+               if k in r},
+            **({"ptxas": ptxas[PTXAS_SYMBOL[kname]]}
+               if kname in PTXAS_SYMBOL else {})})
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

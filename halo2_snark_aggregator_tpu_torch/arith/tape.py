@@ -7,8 +7,9 @@ dependency depth with each level's inversions batched) and returns an
 executor over a slots buffer (n_slots, batch, 8) of Montgomery words on
 the device:
 
-  * each sponge call is one Poseidon-kernel launch that gathers its state
-    and inputs by row, absorbs (modular adds), permutes and scatters;
+  * the whole sponge chain is one Poseidon-kernel launch over the call
+    table: call by call, each lane gathers its state and inputs by row,
+    absorbs (modular adds), permutes and scatters;
   * each level is one field-kernel launch per op kind, gathering operands
     and scattering results by row index;
   * each inversion level is one batched pow launch.
@@ -288,14 +289,12 @@ class TapeExecutor:
         self.r2_idx = torch.zeros(len(tape.input_slots), dtype=torch.int32,
                                   device=device)
 
-        self.sponge = []
+        self.sponge = None
         if pose is not None:
             st_idx, in_idx, in_mask, pad_oh, out_idx = pose
-            st_t, in_t, out_t = (_idx(a, device) for a in (st_idx, in_idx, out_idx))
-            for j in range(len(st_idx)):
-                n_in = int(in_mask[j].sum())
-                pad = int(np.argmax(pad_oh[j])) if pad_oh[j].any() else -1
-                self.sponge.append((st_t[j], in_t[j], n_in, pad, out_t[j]))
+            pad = np.where(pad_oh.any(axis=1), np.argmax(pad_oh, axis=1), -1)
+            self.sponge = po.chain_table(st_idx, in_idx, in_mask.sum(axis=1),
+                                         pad, out_idx, device)
 
         self.steps = []  # ("ops", mode, a, b, out) | ("inv", a, out)
         for kind, payload in plan:
@@ -319,9 +318,8 @@ class TapeExecutor:
         if len(self.input_idx):
             fo.field_op(fo.MUL, FR, inputs, self.r2, b_idx=self.r2_idx,
                         b_bcast=True, out=slots, out_idx=self.input_idx)
-        if self.skip != "poseidon":
-            for st, ins, n_in, pad, out in self.sponge:
-                po.sponge_call(slots, st, ins, n_in, pad, out)
+        if self.sponge is not None and self.skip != "poseidon":
+            po.sponge_chain(slots, self.sponge)
         for step in self.steps:
             if step[0] == "ops" and self.skip != "ops":
                 _, mode, a, b, out = step

@@ -8,6 +8,8 @@ every kernel wrapper runs its plain twin).
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -35,3 +37,27 @@ def resolve(device) -> torch.device:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def profile_device(fn, device: torch.device) -> dict:
+    """Run `fn` once under torch.profiler: the wall time, the device busy
+    time (the sum of the device events' self times) and its share, and the
+    12 kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize(device)
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", 0) or 0
+        if dt > 0:
+            by_kernel[ev.key] = (ev.count, dt / 1e6)
+    busy = sum(t for _c, t in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "by_kernel": {k: {"count": c, "s": t} for k, (c, t) in top}}

@@ -9,6 +9,13 @@ compile raises — there is no fallback.
 
 Every kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, so a run can show that the main path went through the kernels.
+
+Each build keeps nvcc's `-Xptxas -v` report beside the library;
+`ptxas_usage` reads each kernel's registers and spill bytes from it:
+
+    python -m halo2_snark_aggregator_tpu_torch.kernels.build [PTXAS_LOG]
+
+prints them as JSON (for the given log, or after building the library).
 """
 
 from __future__ import annotations
@@ -16,9 +23,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -39,9 +49,9 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "h2t_field": [_I32, _I32, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64, _P,
                   _I32, _P],
-    "h2t_poseidon": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P],
+    "h2t_poseidon_chain": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P],
     "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
-    "h2t_msm_reduce": [_P, _I64, _I64, _P, _P],
+    "h2t_msm_reduce": [_P, _I64, _I64, _I32, _I32, _P, _P],
     "h2t_curve_padd": [_P, _P, _P, _I64, _P],
     "h2t_ntt_butterfly": [_P, _P, _I64, _I64, _P],
     "h2t_ntt_scale": [_P, _P, _P, _I64, _P],
@@ -113,8 +123,43 @@ def _compile(so_path: Path) -> None:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    (BUILD_DIR / f"ptxas-{so_path.stem}.log").write_text("\n".join(logs))
+    _ptxas_log(so_path).write_text("\n".join(logs))
     os.replace(tmp, so_path)
+
+
+def _ptxas_log(so_path: Path) -> Path:
+    return BUILD_DIR / f"ptxas-{so_path.stem}.log"
+
+
+_ENTRY = re.compile(r"Compiling entry function '(_ZN3h2t(\d+)(\w+))'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    a `-Xptxas -v` log. A kernel is named by its identifier in namespace
+    h2t; template instances of one kernel keep the largest figures."""
+    usage: dict = {}
+    name = entry = props = None
+    for line in log.splitlines():
+        fields = ()
+        if m := _ENTRY.search(line):
+            entry, name = m.group(1), m.group(3)[: int(m.group(2))]
+            usage.setdefault(name, dict.fromkeys(
+                ("registers", "stack", "spill_stores", "spill_loads"), 0))
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _STACK.search(line)) and entry and props == entry:
+            # the properties of the entry itself, not of a called function
+            fields = zip(("stack", "spill_stores", "spill_loads"), m.groups())
+        elif (m := _REGS.search(line)) and name:
+            fields = [("registers", m.group(1))]
+        for key, val in fields:
+            usage[name][key] = max(usage[name][key], int(val))
+    return usage
 
 
 @functools.lru_cache(maxsize=1)
@@ -131,7 +176,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     BUILD_INFO.update(path=str(so_path), built=built,
-                      seconds=time.perf_counter() - t0)
+                      seconds=time.perf_counter() - t0,
+                      ptxas_log=str(_ptxas_log(so_path)))
     return lib
 
 
@@ -139,3 +185,12 @@ def check(rc: int, what: str) -> None:
     """Raise if a C launcher returned a nonzero cudaGetLastError()."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        text = Path(sys.argv[1]).read_text()
+    else:
+        library()
+        text = Path(BUILD_INFO["ptxas_log"]).read_text()
+    print(json.dumps(ptxas_usage(text)))

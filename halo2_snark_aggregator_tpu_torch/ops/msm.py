@@ -5,7 +5,8 @@ host window combine.
 Flow (the batched verifier's phase B2): `host_bucket_plan` sorts each
 window's digits into buckets (order / starts / counts); the accumulate
 kernel sums every (window, bucket) lane's points with the mixed add; the
-reduce kernel turns each window's buckets into sum_b b * S_b; the host
+reduce kernel turns each window's buckets into sum_b b * S_b by a parallel
+suffix-sum scan (one block per window); the host
 combines the windows with one native Pippenger call.
 
 The planner is a copy of the reference's numpy planner
@@ -187,24 +188,73 @@ def accumulate(tx: torch.Tensor, ty: torch.Tensor, order: torch.Tensor,
 # -- reduce ---------------------------------------------------------------------
 
 
+REDUCE_THREADS = 256  # csrc/msm.cu kReduceThreads
+
+
+def reduce_shape(nbuckets: int) -> tuple[int, int]:
+    """(threads T, positions per thread L) of the reduce's scan over the
+    n = nbuckets - 1 positions: L = ceil(n / 256), T = ceil(n / L)."""
+    n = max(nbuckets - 1, 1)
+    seg = -(-n // REDUCE_THREADS)
+    return -(-n // seg), seg
+
+
+def _identity_h(shape, device) -> torch.Tensor:
+    """The identity (0 : 1 : 0) as halves, shape + (3, 16)."""
+    ident = torch.zeros(3, 16, dtype=torch.int64, device=device)
+    ident[1] = fo.halves(fo.const(fo.FQ, 1, device))[0]
+    return ident.expand(*shape, 3, 16)
+
+
+def _add_h(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """RCB15 Algorithm 7 on (..., 3, 16) halves."""
+    return torch.stack(cv.full_add_h(p.unbind(-2), q.unbind(-2)), dim=-2)
+
+
+def _neg_h(p: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros_like(p[..., 1, :])
+    return torch.stack([p[..., 0, :], fo.sub_h(fo.FQ, zero, p[..., 1, :]),
+                        p[..., 2, :]], dim=-2)
+
+
 def reduce_plain(acc: torch.Tensor, windows: int, nbuckets: int):
-    """The reduce kernel's semantics in plain PyTorch: per window, sweep
-    b = nbuckets-1 .. 1 with running += S_b; total += running."""
-    dev = acc.device
-    b = fo.halves(acc.reshape(windows, nbuckets, 3, fo.WORDS))
-    one = fo.halves(fo.const(fo.FQ, 1, dev))
-    zero = torch.zeros(windows, 16, dtype=torch.int64, device=dev)
-    ident = (zero, one.expand(windows, 16), zero)
-    running, total = ident, ident
-    for k in range(nbuckets - 1, 0, -1):
-        running = cv.full_add_h(running, tuple(b[:, k, i] for i in range(3)))
-        total = cv.full_add_h(total, running)
-    return torch.stack([fo.words(c) for c in total], dim=1)
+    """The reduce kernel's semantics in plain PyTorch, the same complete adds
+    in the same order (csrc/msm.cu `reduce_kernel`), vectorised over windows
+    and threads: positions x_i = S_{i+1} (identity past n = nbuckets - 1),
+    thread t owning [tL, tL + L); (1) segment sums top down, (2) suffix scan
+    over the threads, (3) each segment's U_i bottom up and their sum, (4)
+    tree sum of the threads' totals."""
+    nt, seg = reduce_shape(nbuckets)
+    n = nbuckets - 1
+    x = fo.halves(acc.reshape(windows, nbuckets, 3, fo.WORDS))[:, 1:]
+    x = torch.cat([x, _identity_h((windows, nt * seg - n), acc.device)], dim=1)
+    x = x.reshape(windows, nt, seg, 3, 16)
+    run = x[:, :, seg - 1]
+    for m in range(seg - 2, -1, -1):
+        run = _add_h(run, x[:, :, m])
+    d = 1
+    while d < nt:
+        run = torch.cat([_add_h(run[:, : nt - d], run[:, d:]), run[:, nt - d :]],
+                        dim=1)
+        d *= 2
+    u = total = run
+    for m in range(1, seg):
+        u = _add_h(u, _neg_h(x[:, :, m - 1]))
+        total = _add_h(total, u)
+    total = total.clone()
+    d = 1
+    while d < nt:
+        lo = torch.arange(0, nt - d, 2 * d, device=acc.device)
+        total[:, lo] = _add_h(total[:, lo], total[:, lo + d])
+        d *= 2
+    return fo.words(total[:, 0])
 
 
 def reduce(acc: torch.Tensor, windows: int, nbuckets: int) -> torch.Tensor:
     """Per-window totals sum_{b>=1} b * S_b: (windows, 3, 8) words."""
     dev = acc.device
+    if nbuckets < 1:
+        raise ValueError(f"nbuckets must be >= 1, got {nbuckets}")
     _check(acc, "acc", (windows * nbuckets, 3, fo.WORDS), dev)
     if dev.type == "cpu":
         return reduce_plain(acc, windows, nbuckets)
@@ -212,8 +262,8 @@ def reduce(acc: torch.Tensor, windows: int, nbuckets: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     totals = torch.empty((windows, 3, fo.WORDS), dtype=torch.int32, device=dev)
     rc = build.library().h2t_msm_reduce(
-        acc.data_ptr(), windows, nbuckets, totals.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        acc.data_ptr(), windows, nbuckets, *reduce_shape(nbuckets),
+        totals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "msm_reduce")
     build.count_launch("msm_reduce")
     return totals

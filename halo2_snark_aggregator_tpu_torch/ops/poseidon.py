@@ -1,17 +1,19 @@
 """Poseidon over BN254 Fr (T=9, RATE=8, R_F=8, R_P=63, x^5): tables, the
-plain twin and the wrapper of the permutation kernel (csrc/poseidon.cu).
+plain twins and the wrapper of the sponge-chain kernel (csrc/poseidon.cu).
 
-The kernel runs one sponge call of the tape: it gathers each lane's 9-word
-state and up to 8 inputs from the slots buffer (rows, lanes, 8), adds the
-inputs into state[1..] and the pad marker, permutes, and scatters the state
-to 9 output rows. `permute` is the same kernel over a plain (n, 9, 8) batch.
-Round constants and the MDS matrix come from hashes/poseidon_spec in
-Montgomery words.
+The kernel runs a whole sponge chain of the tape in one launch: call by
+call, it gathers each lane's 9-word state and up to 8 inputs from the slots
+buffer (rows, lanes, 8), adds the inputs into state[1..] and the pad
+marker, permutes, and scatters the state to 9 output rows; a call may read
+rows an earlier call wrote. The calls are a `SpongeChain` table on the
+device (`chain_table`). Round constants and the MDS matrix come from
+hashes/poseidon_spec in Montgomery words.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,7 +51,7 @@ def tables(device) -> tuple[torch.Tensor, torch.Tensor]:
     return _TABLES[key]
 
 
-# -- plain twin ---------------------------------------------------------------
+# -- plain twins --------------------------------------------------------------
 
 
 def _sbox_h(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +80,7 @@ def permute_h(s: torch.Tensor) -> torch.Tensor:
 
 def sponge_call_plain(slots, st_idx, in_idx, n_in: int, pad_pos: int,
                       out_idx) -> None:
-    """The kernel's semantics in plain PyTorch (any device)."""
+    """One call of the kernel in plain PyTorch (any device), in place."""
     s = fo.halves(slots[st_idx.long()])
     if n_in:
         ins = fo.halves(slots[in_idx[:n_in].long()])
@@ -89,45 +91,78 @@ def sponge_call_plain(slots, st_idx, in_idx, n_in: int, pad_pos: int,
     slots[out_idx.long()] = fo.words(permute_h(s))
 
 
+class SpongeChain(NamedTuple):
+    """A sponge chain's call table on one device, int32: call j reads state
+    rows st_idx[j] (9) and input rows in_idx[j, :n_in[j]], adds the pad
+    marker at state position pad_pos[j] (-1: none) and writes rows
+    out_idx[j] (9)."""
+
+    st_idx: torch.Tensor   # (P, 9)
+    in_idx: torch.Tensor   # (P, 8)
+    n_in: torch.Tensor     # (P,)
+    pad_pos: torch.Tensor  # (P,)
+    out_idx: torch.Tensor  # (P, 9)
+
+
+def chain_table(st_idx, in_idx, n_in, pad_pos, out_idx, device) -> SpongeChain:
+    """Host arrays -> a checked `SpongeChain` on `device`: st_idx / out_idx
+    (P, 9), in_idx (P, 8) (entries past n_in unread), n_in in 0..8, pad_pos
+    in -1..8, every row index nonnegative."""
+    arrs = [np.asarray(a, dtype=np.int64) for a in
+            (st_idx, in_idx, n_in, pad_pos, out_idx)]
+    p = len(arrs[2])
+    want = ((p, T), (p, RATE), (p,), (p,), (p, T))
+    if [a.shape for a in arrs] != list(want):
+        raise ValueError(f"call table: want shapes {want}, got "
+                         f"{[a.shape for a in arrs]}")
+    n_in, pad_pos = arrs[2], arrs[3]
+    if not (((n_in >= 0) & (n_in <= RATE)).all()
+            and ((pad_pos >= -1) & (pad_pos < T)).all()):
+        raise ValueError("call table: n_in must be in 0..8, pad_pos in -1..8")
+    if any((a < 0).any() for a in (arrs[0], arrs[1], arrs[4])):
+        raise ValueError("call table: negative row index")
+    return SpongeChain(*(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                         .to(device) for a in arrs))
+
+
+def sponge_chain_plain(slots, chain: SpongeChain) -> None:
+    """The kernel's semantics in plain PyTorch (any device): the calls in
+    order, each through `sponge_call_plain`."""
+    for j, (n_in, pad) in enumerate(zip(chain.n_in.tolist(),
+                                        chain.pad_pos.tolist())):
+        sponge_call_plain(slots, chain.st_idx[j], chain.in_idx[j], n_in, pad,
+                          chain.out_idx[j])
+
+
 # -- kernel wrapper -----------------------------------------------------------
 
 
-def _check_idx(idx, n: int, name: str, device) -> None:
-    if idx.dtype != torch.int32 or idx.dim() != 1 or len(idx) < n:
-        raise ValueError(f"{name}: want int32 (>= {n},), got {idx.dtype} "
-                         f"{tuple(idx.shape)}")
-    if not idx.is_contiguous() or idx.device != device:
-        raise ValueError(f"{name} must be contiguous on {device}")
-
-
-def sponge_call(slots: torch.Tensor, st_idx: torch.Tensor,
-                in_idx: torch.Tensor | None, n_in: int, pad_pos: int,
-                out_idx: torch.Tensor) -> None:
-    """One sponge call over every lane of `slots` (rows, lanes, 8), in place:
-    state rows st_idx (9), input rows in_idx[:n_in], pad marker added at
-    state position pad_pos (-1: none), result to rows out_idx (9)."""
+def sponge_chain(slots: torch.Tensor, chain: SpongeChain) -> None:
+    """Every call of `chain` over every lane of `slots` (rows, lanes, 8), in
+    order and in place: one kernel launch on a CUDA tensor."""
     dev = slots.device
     if slots.dtype != torch.int32 or slots.dim() != 3 or slots.shape[2] != fo.WORDS:
         raise ValueError(f"slots: want int32 (rows, lanes, 8), got "
                          f"{slots.dtype} {tuple(slots.shape)}")
     if not slots.is_contiguous():
         raise ValueError("slots must be contiguous")
-    if not 0 <= n_in <= RATE or not -1 <= pad_pos < T:
-        raise ValueError("bad n_in / pad_pos")
-    _check_idx(st_idx, T, "st_idx", dev)
-    _check_idx(out_idx, T, "out_idx", dev)
-    if n_in:
-        _check_idx(in_idx, n_in, "in_idx", dev)
+    p = chain.n_in.shape[0]
+    for t, shape in zip(chain, ((p, T), (p, RATE), (p,), (p,), (p, T))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"call table: want int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"call table must be contiguous on {dev}")
     if dev.type == "cpu":
-        sponge_call_plain(slots, st_idx, in_idx, n_in, pad_pos, out_idx)
+        sponge_chain_plain(slots, chain)
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     rc, mds = tables(dev)
-    rc_ = build.library().h2t_poseidon(
-        slots.data_ptr(), slots.shape[1], st_idx.data_ptr(),
-        in_idx.data_ptr() if n_in else None, n_in, pad_pos,
-        out_idx.data_ptr(), rc.data_ptr(), mds.data_ptr(),
+    rc_ = build.library().h2t_poseidon_chain(
+        slots.data_ptr(), slots.shape[1], p,
+        *(t.data_ptr() for t in chain), rc.data_ptr(), mds.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc_, "poseidon")
     build.count_launch("poseidon")
+

@@ -62,29 +62,6 @@ def timed_proof(params, apk, i: int) -> dict:
     }
 
 
-def profiled_proof(params, apk, i: int) -> dict:
-    """Device busy share of one proof (torch.profiler): the sum of kernel
-    times over the wall time, and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    dv.synchronize(params.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove_fixture(params, apk, i)
-        dv.synchronize(params.device)
-        wall = time.perf_counter() - t0
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", 0) or 0
-        if dt > 0:
-            by_kernel[ev.key] = (ev.count, dt / 1e6)
-    busy = sum(t for _c, t in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
-            "by_kernel": {k: {"count": c, "s": t} for k, (c, t) in top}}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--proofs", type=int, default=fixtures.K16_PROOFS)
@@ -113,7 +90,8 @@ def main() -> int:
         "proofs": runs,
     }
     if args.profile:
-        out["profile"] = profiled_proof(params, apk, 0)
+        out["profile"] = dv.profile_device(
+            lambda: prove_fixture(params, apk, 0), params.device)
     print(json.dumps(out))
     return 0
 

@@ -77,17 +77,57 @@ def test_field_kernel_to_mont_unreduced(cuda, spec):
     assert fo.from_mont_words(spec, got) == [v % spec.modulus for v in vals]
 
 
-def test_poseidon_kernel_matches_twin(cuda):
-    slots = _rand(fo.FR, (26, 33), 6, cuda)
-    st = torch.arange(9, dtype=torch.int32, device=cuda)
-    ins = torch.arange(9, 17, dtype=torch.int32, device=cuda)
-    out = torch.arange(17, 26, dtype=torch.int32, device=cuda)
-    for n_in, pad in ((8, -1), (2, 3), (0, 1)):
-        k, p = slots.clone(), slots.clone()
-        po.sponge_call(k, st, ins, n_in, pad, out)
-        po.sponge_call_plain(p, st, ins, n_in, pad, out)
-        torch.cuda.synchronize()
-        assert torch.equal(k, p)
+def _chain(n_calls, seed):
+    """A random call table: 9 start rows, 16 input rows, then fresh output
+    rows. Each call reads the start rows or an earlier call's output, takes
+    0..8 inputs (the pad marker after them when short), and writes fresh
+    rows or, in place, a permutation of the rows it read."""
+    rng = np.random.default_rng(seed)
+    st, n_in, pad, out = [], [], [], []
+    ins = np.zeros((n_calls, 8), np.int64)
+    states, rows = [list(range(9))], 25
+    for j in range(n_calls):
+        src = states[int(rng.integers(len(states)))]
+        k = int(rng.integers(0, 9))
+        ins[j, :k] = rng.choice(np.arange(9, 25), size=k, replace=False)
+        if rng.random() < 0.3:
+            dst = [int(r) for r in rng.permutation(src)]
+        else:
+            dst, rows = list(range(rows, rows + 9)), rows + 9
+        st.append(src)
+        n_in.append(k)
+        pad.append(1 + k if k < 8 else -1)
+        out.append(dst)
+        states.append(dst)
+    return (st, ins, n_in, pad, out), rows
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 128])
+@pytest.mark.parametrize("n_calls", [1, 3, 30])
+def test_poseidon_kernel_matches_twin(cuda, n_calls, lanes):
+    """The chain kernel in one launch against its twin (on the CPU, where
+    the twin's many small ops run faster) over a random call table."""
+    table, rows = _chain(n_calls, 100 * n_calls + lanes)
+    slots = _rand(fo.FR, (rows, lanes), 6, cuda)
+    want = slots.cpu()
+    po.sponge_chain_plain(want, po.chain_table(*table, "cpu"))
+    before = build.LAUNCHES["poseidon"]
+    po.sponge_chain(slots, po.chain_table(*table, cuda))
+    assert build.LAUNCHES["poseidon"] == before + 1
+    assert torch.equal(slots.cpu(), want)
+
+
+def _sweep(acc, windows, nbuckets):
+    """The serial reduce: per window, b = B-1..1, running += S_b; total +=
+    running (tests/test_torch_msm.py keeps the same oracle)."""
+    b = acc.reshape(windows, nbuckets, 3, 8)
+    one = fo.const(fo.FQ, 1, acc.device)
+    zero = torch.zeros(windows, 8, dtype=torch.int32, device=acc.device)
+    running = total = (zero, one.expand(windows, 8), zero)
+    for k in range(nbuckets - 1, 0, -1):
+        running = cv.full_add(running, b[:, k].unbind(1))
+        total = cv.full_add(total, running)
+    return torch.stack(total, dim=1)
 
 
 @pytest.mark.parametrize("c", [8, 4])
@@ -106,6 +146,27 @@ def test_msm_kernels_match_twins(cuda, c):
     assert torch.equal(tot, pm.reduce_plain(acc, windows, nb))
     got = pm.combine_windows_host(tuple(tot[:, i] for i in range(3)), c)
     assert got == ff.g1_msm(pts, scal)
+
+
+@pytest.mark.parametrize("windows,nbuckets", [(32, 256), (3, 16), (2, 600)])
+def test_reduce_kernel_matches_twin(cuda, windows, nbuckets):
+    """The scan reduce word for word against its twin, and in affine form
+    against the serial sweep, on projective buckets with identities and
+    repeats (600 buckets: 3 positions a thread)."""
+    rng = np.random.default_rng(windows + nbuckets)
+    m = windows * nbuckets
+    pts = [ff.g1_mul(ff.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(64)]
+    a = [pts[int(i)] for i in rng.integers(64, size=m)]
+    b = [pts[int(i)] for i in rng.integers(64, size=m)]
+    a[1] = b[1] = None
+    acc = cv.padd(torch.stack(cv.from_affine_ints(a, cuda), dim=1),
+                  torch.stack(cv.from_affine_ints(b, cuda), dim=1))
+    before = build.LAUNCHES["msm_reduce"]
+    tot = pm.reduce(acc, windows, nbuckets)
+    assert build.LAUNCHES["msm_reduce"] == before + 1
+    assert torch.equal(tot, pm.reduce_plain(acc, windows, nbuckets))
+    assert (cv.to_affine_ints(tot.unbind(1))
+            == cv.to_affine_ints(_sweep(acc, windows, nbuckets).unbind(1)))
 
 
 def test_padd_kernel_matches_twin(cuda):

@@ -1,9 +1,10 @@
 """The port's MSM layer (ops/msm.py, ops/curve.py) against the reference:
 the planner copy against `ops/msm.host_bucket_plan`, the curve twins
 against the Pallas kernels' row functions `msm_pallas._mixed_add` /
-`_full_add` run eagerly (as tests/test_msm_pallas.py runs them), and the
-whole twin MSM (plan -> accumulate -> reduce -> combine) against the
-native MSM. Exact equality throughout."""
+`_full_add` run eagerly (as tests/test_msm_pallas.py runs them), the
+scan reduce against host sums sum_b b * S_b (`ff/bn254`) and against the
+serial running-sum sweep, and the whole twin MSM (plan -> accumulate ->
+reduce -> combine) against the native MSM. Exact equality throughout."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +118,60 @@ def test_twin_msm_matches_native(n, c):
     want = ff.g1_msm([p for p in pts if p is not None],
                      [s for p, s in zip(pts, scal) if p is not None])
     assert _msm(pts, scal, c) == want
+
+
+def _sweep(acc, windows, nbuckets):
+    """The serial reduce (the TPU kernel's order): per window, b = B-1..1,
+    running += S_b; total += running."""
+    b = fo.halves(acc.reshape(windows, nbuckets, 3, 8))
+    one = fo.halves(fo.const(fo.FQ, 1, "cpu"))
+    zero = torch.zeros(windows, 16, dtype=torch.int64)
+    running = total = (zero, one.expand(windows, 16), zero)
+    for k in range(nbuckets - 1, 0, -1):
+        running = cv.full_add_h(running, tuple(b[:, k, i] for i in range(3)))
+        total = cv.full_add_h(total, running)
+    return torch.stack([fo.words(c) for c in total], dim=1)
+
+
+@pytest.mark.parametrize("windows,nbuckets", [(2, 2), (3, 16), (2, 256), (2, 600)])
+def test_reduce_matches_host_sum(windows, nbuckets):
+    """Projective buckets (random z, identities as (0 : z : 0)) with
+    identity and repeated buckets: the scan reduce's totals equal
+    sum_b b * S_b on host ints and the serial sweep's, in affine form
+    (600 buckets: 3 positions a thread, the segment steps of the scan)."""
+    rng = np.random.default_rng(90 + nbuckets)
+    m = windows * nbuckets
+    bucket = _points(91 + nbuckets, m)
+    for i in rng.choice(m, size=max(m // 4, 1), replace=False):
+        bucket[i] = bucket[int(rng.integers(m))]  # repeated buckets
+    bucket[1] = bucket[-1] = None
+    lam = [int(rng.integers(1, 1 << 62)) for _ in range(m)]
+    coords = ([0 if p is None else p[0] * z % ff.P for p, z in zip(bucket, lam)],
+              [z if p is None else p[1] * z % ff.P for p, z in zip(bucket, lam)],
+              [0 if p is None else z for p, z in zip(bucket, lam)])
+    acc = torch.stack([fo.mont_words(fo.FQ, c, "cpu") for c in coords], dim=1)
+    want = []
+    for w in range(windows):
+        rows = [(b, bucket[w * nbuckets + b]) for b in range(1, nbuckets)]
+        rows = [(b, p) for b, p in rows if p is not None]
+        want.append(ff.g1_msm([p for _, p in rows], [b for b, _ in rows])
+                    if rows else None)
+    got = pm.reduce(acc, windows, nbuckets)
+    assert cv.to_affine_ints(got.unbind(1)) == want
+    assert cv.to_affine_ints(_sweep(acc, windows, nbuckets).unbind(1)) == want
+
+
+def test_reduce_shape():
+    """One position a thread up to 257 buckets; wider windows share out
+    ceil(n / 256) positions a thread, every thread's segment starting
+    below n."""
+    assert pm.reduce_shape(2) == (1, 1)
+    assert pm.reduce_shape(16) == (15, 1)
+    assert pm.reduce_shape(256) == (255, 1)
+    assert pm.reduce_shape(257) == (256, 1)
+    for nb in (258, 600, 1 << 14):
+        nt, seg = pm.reduce_shape(nb)
+        assert nt <= pm.REDUCE_THREADS and (nt - 1) * seg < nb - 1 <= nt * seg
 
 
 def test_affine_table_checks_every_row():

@@ -80,6 +80,34 @@ def test_build_digest_covers_every_source():
     assert set(build.LAUNCHES) == set(build.KERNELS)
 
 
+def test_ptxas_usage_reads_each_kernel():
+    """Registers, stack and spills per kernel from an nvcc -Xptxas -v log:
+    template instances keep the largest figures, and a called function's
+    stack frame is not its caller's."""
+    log = """== msm.cu
+ptxas info    : Compiling entry function '_ZN3h2t13reduce_kernelEPKjliPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN3h2t13reduce_kernelEPKjliPj
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 250 registers, used 1 barriers, 24576 bytes smem
+ptxas info    : Function properties for _ZN3h2t8full_addERKNS_2PtES2_
+    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+== field.cu
+ptxas info    : Compiling entry function '_ZN3h2t12field_kernelILi0EEEviPKj' for 'sm_90a'
+ptxas info    : Function properties for _ZN3h2t12field_kernelILi0EEEviPKj
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers
+ptxas info    : Compiling entry function '_ZN3h2t12field_kernelILi1EEEviPKj' for 'sm_90a'
+ptxas info    : Function properties for _ZN3h2t12field_kernelILi1EEEviPKj
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 52 registers
+"""
+    assert build.ptxas_usage(log) == {
+        "reduce_kernel": dict(registers=250, stack=8, spill_stores=4,
+                              spill_loads=12),
+        "field_kernel": dict(registers=52, stack=40, spill_stores=0,
+                             spill_loads=0)}
+
+
 def test_chip_smoke_fails_without_cuda(tmp_path):
     """No card: exit nonzero and print no result, in the repo and in a
     directory that holds chip_smoke.py alone."""

@@ -129,6 +129,26 @@ def test_executor_matches_host_replay(simple):
         assert [got[s] for s in range(tape.n_slots)] == [want[s] for s in range(tape.n_slots)]
 
 
+def test_executor_runs_the_chain_in_one_call(simple, monkeypatch):
+    """`run` hands the whole sponge chain to one `sponge_chain` call (one
+    kernel launch on a card): the tape's calls in record order."""
+    params, vk, proofs, insts = simple
+    bv = pbatched.BatchedVerifier(vk, params, batch=2, sample_proof=proofs[0],
+                                  sample_instances=insts[0], device="cpu")
+    seen = []
+    monkeypatch.setattr(ptape.po, "sponge_chain",
+                        lambda slots, chain: seen.append(chain))
+    n_in = len(bv.tape.input_slots)
+    bv.run_tape.run(fo.to_tensor(np.zeros((n_in, 2, 8), np.uint32), "cpu"))
+    assert len(seen) == 1
+    calls = bv.tape.poseidon_calls
+    assert seen[0].st_idx.tolist() == [list(st) for st, _in, _out in calls]
+    assert seen[0].out_idx.tolist() == [list(out) for _st, _in, out in calls]
+    assert seen[0].n_in.tolist() == [len(inp) for _st, inp, _out in calls]
+    assert seen[0].pad_pos.tolist() == [1 + len(inp) if len(inp) < pspec.RATE
+                                        else -1 for _st, inp, _out in calls]
+
+
 def test_constant_table_matches_reference(simple):
     """The executor's constant words equal the reference compile_tape's
     table (Montgomery bytes, field_rr.FR.to_mont_int) after convert.py."""
