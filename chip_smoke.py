@@ -6,8 +6,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
   1. device: the card's name, power limit and top SM clock; no CUDA -> exit 2;
   2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc
      (one nvcc per source, in parallel), g++ the native host library; the
-     registers and spill bytes of the sponge-chain and reduce kernels from
-     ptxas;
+     registers and spill bytes of the sponge-chain, accumulate and reduce
+     kernels from ptxas;
   3. setup + keygen: the K=16 SRS (fixed-base add tree) and the zkevm-shape
      key built on the card, device commits, fingerprint checked; launch
      counts read for that path;
@@ -16,9 +16,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
      prover's 2^16-element polynomials), pow (Fr inversions, Fq square
      roots), 4b the Poseidon sponge chain on the verifier's call table at
      128 lanes (the whole chain in one launch against the twin run on the
-     CPU, then timed) and one call alone, 4c MSM accumulate and reduce at one
-     commit of the prover (2^16 SRS points, c=8; the total against the
-     native MSM),
+     CPU, then timed) and one call alone, 4c the MSM split plan, accumulate
+     and reduce at one commit of the prover (2^16 SRS points, c=8: the plan
+     built on the card against the numpy copy's, the row combine against
+     the native MSM; max bucket load, max row load, rows, the plan's time),
      4d padd on 2^14 special pairs (identities, doubling, inverse) and on
      every level of the SRS add tree (2^20 .. 2^16 pairs), 4e NTT butterfly
      and scale at k=16 (forward == native fr_ntt, inverse(forward) == input);
@@ -30,14 +31,15 @@ Phases (each prints one line; any failure raises and exits nonzero):
      (device busy share, device time by kernel);
   7. negative: one flipped transcript-scalar byte must fail the verify;
   8. prove: fixture proof 0 made on the card with device commits must equal
-     the committed bytes; stage split, launches, commit loads, the host vs
-     device commit A/B on one 2^16-scalar vector; then that proof with
+     the committed bytes; stage split, launches, commit loads and split, the
+     host vs device commit A/B on one 2^16-scalar vector; then that proof with
      fixtures 1-3 through the batch-4 verifier, equal to the oracle.
 Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
-path; for the two redesigned kernels, their registers and spills from ptxas
-and, for the sponge, the whole chain's times), the nvidia-smi line, and the
+path; for the three redesigned kernels, their registers and spills from
+ptxas; for the sponge, the whole chain's times; for the accumulate, the
+plan's time), the nvidia-smi line, and the
 final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
@@ -81,7 +83,9 @@ KERNEL_SOURCES = {
     "ntt_butterfly": ("ntt.cu", "ops/ntt_pallas.py:168"),
     "ntt_scale": ("ntt.cu", "ops/ntt_pallas.py:179"),
 }
-PTXAS_SYMBOL = {"poseidon": "poseidon_chain_kernel", "msm_reduce": "reduce_kernel"}
+PTXAS_SYMBOL = {"poseidon": "poseidon_chain_kernel",
+                "msm_accumulate": "accumulate_kernel",
+                "msm_reduce": "reduce_kernel"}
 PATH_KERNELS = {
     "setup_keygen": ("curve_padd", "field", "ntt_butterfly", "ntt_scale",
                      "msm_accumulate", "msm_reduce"),
@@ -388,50 +392,71 @@ def check_poseidon(dev, rng, bv, bound, results):
 
 
 def check_msm(dev, rng, params, bound, results):
-    """The accumulate and reduce kernels at one commit of the prover: the
-    2^16-point affine SRS table, c = 8, uniform scalars."""
+    """The split plan and the accumulate and reduce kernels at one commit of
+    the prover: the 2^16-point affine SRS table, c = 8, uniform scalars.
+    The plan built on the card must equal the numpy copy's; each kernel
+    its twin on the card; the row combine the native MSM."""
+    from halo2_snark_aggregator_tpu_torch import device as dv
     from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import msm as pm
 
     n, c = params.n, params.msm_window
     scal = rand_ints(ff.R, n, rng)
+    words = fo.ints_to_words(scal)
+    std = fo.to_tensor(words, dev)
     tx, ty, _ident = params.table()
-    plan = pm.plan_to_device(
-        pm.host_bucket_plan(fo.words_to_canonical16(fo.ints_to_words(scal)), c), dev)
-    windows, nb = plan[2].shape
+    stats = {}
+    plan = pm.bucket_plan_split(std, c, stats=stats)
+    host = pm.host_bucket_plan_split(fo.words_to_canonical16(words), c)
+    if not all(np.array_equal(g.cpu().numpy(), h) for g, h in zip(plan, host)):
+        raise AssertionError("the plan built on the card differs from the "
+                             "numpy copy's")
+    plan_ms = cuda_ms(lambda: pm.bucket_plan_split(std, c), 5)
+    plan_dev_ms = dv.profile_device(lambda: pm.bucket_plan_split(std, c),
+                                    dev)["device_busy_s"] * 1e3
+    rows, nb = plan[2].shape
     acc_k = pm.accumulate(tx, ty, *plan)
     acc_p, acc_plain_ms = once_ms(lambda: pm.accumulate_plain(tx, ty, *plan))
     err_a = max_abs_err(acc_k, acc_p)
-    tot_k = pm.reduce(acc_k, windows, nb)
-    tot_p, red_plain_ms = once_ms(lambda: pm.reduce_plain(acc_k, windows, nb))
+    tot_k = pm.reduce(acc_k, rows, nb)
+    tot_p, red_plain_ms = once_ms(lambda: pm.reduce_plain(acc_k, rows, nb))
     err_r = max_abs_err(tot_k, tot_p)
     if err_a or err_r:
         raise AssertionError(f"msm kernels differ from their twins: {err_a}, {err_r}")
-    got = pm.combine_windows_host(tuple(tot_k[:, i] for i in range(3)), c)
+    got = pm.combine_rows_host(tot_k.unbind(1), plan[3], c)
     if got != ff.g1_msm(params.g_host_points(), scal):
         raise AssertionError("msm total differs from the native MSM")
     ta = (timed(lambda: pm.accumulate(tx, ty, *plan), "accumulate_kernel", 5),
           acc_plain_ms)
-    tr = (timed(lambda: pm.reduce(acc_k, windows, nb), "reduce_kernel", 5),
+    tr = (timed(lambda: pm.reduce(acc_k, rows, nb), "reduce_kernel", 5),
           red_plain_ms)
-    adds = int(plan[2].sum())
-    phase("4c msm", f"exact over {n} points, c={c}, max bucket load "
-          f"{int(plan[2].max())}; total == native g1_msm; accumulate "
-          f"{ta[0]['ms']:.3f} ms (plain {ta[1]:.1f} ms), reduce "
-          f"{tr[0]['ms']:.3f} ms (plain {tr[1]:.1f} ms, depth "
-          f"{reduce_depth(nb)} adds, serial sweep {2 * (nb - 1)}), device time")
-    lanes = windows * nb
+    adds = stats["adds"]
+    lanes = rows * nb
+    acc_bound = bound(n * 64 + plan[0].numel() * 4 + lanes * 8 + rows * 4
+                      + lanes * 96, adds * MIXED_ADD_MULS * MONT_MUL_IMAD)
+    phase("4c msm", f"split plan on the card == numpy copy's; exact over {n} "
+          f"points, c={c}, max bucket load {stats['max_load']}, max row load "
+          f"{stats['max_row_load']} (target {stats['target']}), {rows} rows, "
+          f"{lanes} lanes ({int((plan[2] > 0).sum())} with points), {adds} "
+          f"adds; total == native g1_msm; plan {plan_ms:.3f} ms (events, its "
+          f"host sync included; {plan_dev_ms:.3f} ms device); accumulate {ta[0]['ms']:.3f} ms device, "
+          f"{ta[0]['launch_ms']:.3f} ms launch (plain {ta[1]:.1f} ms, bound "
+          f"{acc_bound[0]:.3f} ms); reduce over {rows} rows {tr[0]['ms']:.3f} "
+          f"ms device (plain {tr[1]:.1f} ms, depth {reduce_depth(nb)} adds, "
+          f"serial sweep {2 * (nb - 1)})")
     results["msm_accumulate"] = dict(
-        max_abs_err=err_a, plain_ms=ta[1], **ta[0],
-        shape=f"{n} points, c={c}, {adds} mixed adds",
-        bound=bound(n * 64 + windows * n * 4 + lanes * 8 + lanes * 96,
-                    adds * MIXED_ADD_MULS * MONT_MUL_IMAD))
+        max_abs_err=err_a, plain_ms=ta[1], **ta[0], plan_ms=plan_ms,
+        plan_device_ms=plan_dev_ms,
+        shape=f"{n} points, c={c}, {rows} rows x {nb} buckets, {adds} mixed "
+              f"adds, max row load {stats['max_row_load']} (max bucket load "
+              f"{stats['max_load']})",
+        bound=acc_bound)
     results["msm_reduce"] = dict(
         max_abs_err=err_r, plain_ms=tr[1], **tr[0],
-        shape=f"{windows} windows x {nb} buckets",
-        bound=bound(lanes * 96 + windows * 96,
-                    windows * 2 * (nb - 1) * FULL_ADD_MULS * MONT_MUL_IMAD))
+        shape=f"{rows} rows x {nb} buckets",
+        bound=bound(lanes * 96 + rows * 96,
+                    rows * 2 * (nb - 1) * FULL_ADD_MULS * MONT_MUL_IMAD))
 
 
 def check_padd(dev, rng, params, bound, results):
@@ -571,14 +596,17 @@ def commit_ab(params, rng) -> str:
         t0 = time.perf_counter()
         points.add(params.commit_coeff_mont(v))
         times[mode].append(time.perf_counter() - t0)
-    loads = [c["max_load"] for c in params.commit_log if c["mode"] == "device"]
+    dev_log = [c for c in params.commit_log if c["mode"] == "device"]
     params.commit_log = None
     params.commit_mode = mode0
     if len(points) != 1:
         raise AssertionError("host and device commits differ")
+    split = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in dev_log[-1]["split_s"].items())
     return (f"host {times['host'][0]:.3f}/{times['host'][1]:.3f} s, device "
             f"{times['device'][0]:.3f}/{times['device'][1]:.3f} s (max bucket "
-            f"load {max(loads)})")
+            f"load {dev_log[-1]['max_load']}, max row load "
+            f"{dev_log[-1]['max_row_load']}, {dev_log[-1]['rows']} rows; "
+            f"second device commit in ms: {split})")
 
 
 def forbidden_modules() -> list[str]:
@@ -725,7 +753,10 @@ def main() -> int:
     phase("8 prove", f"K=16 proof 0 with device commits == committed bytes "
           f"({len(run['proof'])} B); {run['seconds']:.2f} s/proof; stages "
           f"{split}; {run['commits']} commits, slowest {run['commit_s_max']:.3f} s, "
-          f"max bucket load {run['max_bucket_load']}; launches {paths['prove']}; "
+          f"max bucket load {run['max_bucket_load']}, max row load "
+          f"{run['max_row_load']}; commit split (s, summed) "
+          f"{ {k: round(v, 3) for k, v in run['commit_split_s'].items()} }; "
+          f"launches {paths['prove']}; "
           f"commit A/B {ab}; batch-4 verify with fixtures 1-3 == oracle")
 
     bad_mods = forbidden_modules()
@@ -745,8 +776,8 @@ def main() -> int:
             "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": r["shape"],
-            **{k: r[k] for k in ("chain_calls", "chain_ms", "chain_launch_ms")
-               if k in r},
+            **{k: r[k] for k in ("chain_calls", "chain_ms", "chain_launch_ms",
+                                 "plan_ms", "plan_device_ms") if k in r},
             **({"ptxas": ptxas[PTXAS_SYMBOL[kname]]}
                if kname in PTXAS_SYMBOL else {})})
     print(json.dumps({"kernels": kernels}))

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "h2t_field": [_I32, _I32, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64, _P,
                   _I32, _P],
     "h2t_poseidon_chain": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P],
-    "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     "h2t_msm_reduce": [_P, _I64, _I64, _I32, _I32, _P, _P],
     "h2t_curve_padd": [_P, _P, _P, _I64, _P],
     "h2t_ntt_butterfly": [_P, _P, _I64, _I64, _P],

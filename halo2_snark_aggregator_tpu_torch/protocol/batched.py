@@ -11,9 +11,10 @@ halo2_snark_aggregator_tpu/protocol/batched.py, same stages):
   4. host: absorb each lane's last squeeze, squeeze lambda;
   5. phase B1: scale every MSM scalar and the leftover terms by the lanes'
      lambda powers and leave Montgomery form (field kernel);
-  6. phase B2: host bucket plan -> accumulate kernel -> reduce kernel, per
-     MSM (w_x, w_g);
-  7. host: window combine, off-curve gate, leftover generator terms,
+  6. phase B2: split bucket plan on the device -> accumulate kernel ->
+     reduce kernel, per MSM (w_x, w_g); the scalars never leave the device
+     (the reference plans the unsigned plan on the host);
+  7. host: row combine, off-curve gate, leftover generator terms,
      pairing check.
 
 `TapePoint`, `ConstPoint`, `TapeEccChip` and `RecordingTranscript` are
@@ -367,20 +368,19 @@ class BatchedVerifier:
     # -- phase B --------------------------------------------------------------
     def _phase_b1(self, slots, lam_pows):
         """Lambda-scale and de-Montgomery every MSM scalar (entry-major,
-        zero-padded) and the leftover terms, whose lane sum stays on the
-        host."""
+        zero-padded, on the device) and the leftover terms, whose lane sum
+        stays on the host."""
         zeros = torch.zeros(max(len(i) for i in self._scal_idx), dtype=torch.int32,
                             device=self.device)
-        scal16s, leftovers = [], []
+        scalars, leftovers = [], []
         for (entries, leftover), sidx in zip(self.msm_plans, self._scal_idx):
             n = len(entries)
             scal = fo.field_op(fo.MUL, FR, slots, lam_pows, a_idx=sidx,
                                b_idx=zeros[:n])
             std = fo.field_op(fo.MUL, FR, scal, self._from_mont,
-                              b_idx=zeros[:n], b_bcast=True)
-            scal16 = np.zeros((self._padded_n(n), 16), np.uint32)
-            scal16[: n * self.batch] = fo.words_to_canonical16(std).reshape(-1, 16)
-            scal16s.append(scal16)
+                              b_idx=zeros[:n], b_bcast=True).reshape(-1, fo.WORDS)
+            pad = std.new_zeros((self._padded_n(n) - std.shape[0], fo.WORDS))
+            scalars.append(torch.cat([std, pad]))
             if leftover is None:
                 leftovers.append(None)
                 continue
@@ -391,11 +391,12 @@ class BatchedVerifier:
             lv = fo.field_op(fo.MUL, FR, lv, self._from_mont, b_idx=zeros[:1],
                              b_bcast=True)
             leftovers.append(sum(fo.words_to_ints(lv)) % ff.R)
-        return scal16s, leftovers
+        return scalars, leftovers
 
-    def _phase_b2(self, tables, scal16s):
+    def _phase_b2(self, tables, scalars):
+        """Row totals and their windows of each MSM (the split plan)."""
         return [msm_mod.msm_totals(t, s, self.msm_window)
-                for t, s in zip(tables, scal16s)]
+                for t, s in zip(tables, scalars)]
 
     # -- public API -----------------------------------------------------------
     def verify(self, proofs: list[bytes], instances_per_lane: list):
@@ -432,15 +433,15 @@ class BatchedVerifier:
             tables.append(msm_mod.affine_table(cv.from_affine_ints(flat, self.device)))
         mark("entry_points")
 
-        scal16s, leftovers = self._phase_b1(slots, lam_pows)
+        scalars, leftovers = self._phase_b1(slots, lam_pows)
         mark("phase_b1")
-        outs = self._phase_b2(tables, scal16s)
+        outs = self._phase_b2(tables, scalars)
         mark("phase_b2")
 
         results = []
-        for totals, e_int in zip(outs, leftovers):
-            pt = msm_mod.combine_windows_host(
-                tuple(totals[:, i] for i in range(3)), self.msm_window)
+        for (totals, weights), e_int in zip(outs, leftovers):
+            pt = msm_mod.combine_rows_host(totals.unbind(1), weights,
+                                           self.msm_window)
             # kernel-health gate: every input point is curve-checked at
             # decompress, so an off-curve total can only come from broken
             # device arithmetic, never from proof data

@@ -9,8 +9,9 @@ for i < N (default 4: `ZkevmShapeCircuit(k=16, seed=2 + i, n_groups=8)`,
 blinding seed i) with `create_proof_accel`, and checks each proof's bytes
 against bench_fixtures/. Prints one JSON line: seconds per proof, the
 stage split (synthesis, ntt, commit, quotient, open, other; host clock, a
-synchronize at every boundary), the device commits' largest bucket load
-and slowest commit, and every kernel's launches per proof. With
+synchronize at every boundary), the device commits' largest bucket load,
+largest row load (the accumulate's depth) and seconds by phase summed over
+the proof, the slowest commit, and every kernel's launches per proof. With
 --profile, one more proof runs under torch.profiler and the line gains
 the device busy share and the device time by kernel. Fails without a card.
 """
@@ -59,6 +60,10 @@ def timed_proof(params, apk, i: int) -> dict:
         "commits": len(log),
         "commit_s_max": max((c["seconds"] for c in log), default=0.0),
         "max_bucket_load": max((c["max_load"] for c in dev_commits), default=0),
+        "max_row_load": max((c["max_row_load"] for c in dev_commits), default=0),
+        "commit_split_s": {k: sum(c["split_s"][k] for c in dev_commits)
+                           for k in (dev_commits[0]["split_s"] if dev_commits
+                                     else ())},
     }
 
 

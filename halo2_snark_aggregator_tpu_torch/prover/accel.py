@@ -10,8 +10,9 @@ their helpers). The pipeline is the reference's:
   * every product, sum and difference of polynomials is the field kernel
     (ops/field.elementwise);
   * commitments are Pippenger MSMs: on the device through ops/msm.msm_totals
-    (the accumulate and reduce kernels, unsigned plan, window
-    `msm_window`) over the affine SRS table, or on the host through the
+    (the reference's split plan, as `msm_staged_split` commits, built on
+    the card; the accumulate and reduce kernels; window `msm_window`) over
+    the affine SRS table, or on the host through the
     native Pippenger (`commit_mode`; by default the params' device decides,
     and the reference's "auto" rule, host MSMs up to k = 22 while the
     native library loads, is not ported);
@@ -273,7 +274,12 @@ class AccelParams:
 
     def commit_coeff_mont(self, coeffs_mont: torch.Tensor):
         """Commit a Montgomery coefficient vector; an affine int point or
-        None (the identity)."""
+        None (the identity). A device commit keeps the scalars on the card:
+        standard form, zero-padded to n, into ops/msm.msm_totals (the split
+        plan built on the card) and the host row combine. With a
+        `commit_log`, a device commit's record holds the plan's figures and
+        `split_s`, its seconds by phase (scalars, plan, accumulate, reduce,
+        combine; a synchronize at each boundary)."""
         record = self.commit_log is not None
         if record:
             dv.synchronize(self.device)
@@ -284,13 +290,28 @@ class AccelParams:
             out = ff.g1_msm(self.g_host_points()[: len(scalars)], scalars)
             mode = "host"
         else:
-            m = coeffs_mont.shape[0]
-            scalars = np.zeros((self.n, 16), dtype=np.uint32)
-            scalars[:m] = fo.words_to_canonical16(m_from_mont(coeffs_mont))
-            totals = msm_ops.msm_totals(self.table(), scalars,
-                                        self.msm_window, stats=stats)
-            out = msm_ops.combine_windows_host(totals.unbind(1),
-                                               self.msm_window)
+            split: dict[str, float] = {}
+            marks = [t0] if record else None
+
+            def lap(phase: str) -> None:
+                if record:
+                    dv.synchronize(self.device)
+                    marks.append(time.perf_counter())
+                    split[phase] = marks[-1] - marks[-2]
+
+            pad = self.n - coeffs_mont.shape[0]
+            std = m_from_mont(coeffs_mont)
+            if pad:
+                std = torch.cat([std, std.new_zeros((pad, WORDS))])
+            lap("scalars")
+            totals, weights = msm_ops.msm_totals(
+                self.table(), std, self.msm_window,
+                stats=stats if record else None, lap=lap)
+            out = msm_ops.combine_rows_host(totals.unbind(1), weights,
+                                            self.msm_window)
+            lap("combine")
+            if record:
+                stats["split_s"] = split
             mode = "device"
         if record:
             self.commit_log.append(dict(mode=mode, seconds=time.perf_counter() - t0,

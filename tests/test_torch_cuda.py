@@ -18,7 +18,7 @@ from halo2_snark_aggregator_tpu_torch.ops import field as fo
 from halo2_snark_aggregator_tpu_torch.ops import msm as pm
 from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
 from halo2_snark_aggregator_tpu_torch.ops import poseidon as po
-from halo2_snark_aggregator_tpu_torch.prover import accel
+from halo2_snark_aggregator_tpu_torch.prover import accel, srs
 from halo2_snark_aggregator_tpu_torch.prover.kzg import ParamsKZG
 from halo2_snark_aggregator_tpu_torch.transcript.host import PoseidonWrite
 
@@ -132,20 +132,77 @@ def _sweep(acc, windows, nbuckets):
 
 @pytest.mark.parametrize("c", [8, 4])
 def test_msm_kernels_match_twins(cuda, c):
+    """Split plan built on the card (target 4: several rows a window),
+    accumulate and reduce against their twins, the row combine against the
+    native MSM."""
     rng = np.random.default_rng(7)
     n = 300
     pts = [ff.g1_mul(ff.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(n)]
     scal = [int.from_bytes(rng.bytes(32), "little") % ff.R for _ in range(n)]
     tx, ty, _ident = pm.affine_table(cv.from_affine_ints(pts, cuda))
-    plan = pm.plan_to_device(pm.host_bucket_plan(
-        fo.words_to_canonical16(fo.ints_to_words(scal)), c), cuda)
-    windows, nb = plan[2].shape
+    plan = pm.bucket_plan_split(fo.to_tensor(fo.ints_to_words(scal), cuda), c, 4)
+    rows, nb = plan[2].shape
+    assert rows > -(-256 // c)
     acc = pm.accumulate(tx, ty, *plan)
     assert torch.equal(acc, pm.accumulate_plain(tx, ty, *plan))
-    tot = pm.reduce(acc, windows, nb)
-    assert torch.equal(tot, pm.reduce_plain(acc, windows, nb))
-    got = pm.combine_windows_host(tuple(tot[:, i] for i in range(3)), c)
+    tot = pm.reduce(acc, rows, nb)
+    assert torch.equal(tot, pm.reduce_plain(acc, rows, nb))
+    got = pm.combine_rows_host(tot.unbind(1), plan[3], c)
     assert got == ff.g1_msm(pts, scal)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all_ones"])
+def test_accumulate_split_matches_twin(cuda, kind):
+    """The accumulate kernel word for word against its twin on the split
+    plan at 2^12 SRS points (c = 8, the default target): uniform scalars
+    (the top window in several rows), and all ones (one bucket of 4096
+    points in 64 rows)."""
+    n = 1 << 12
+    params = srs.unsafe_setup_accel(12, device=cuda)
+    tx, ty, _ident = params.table()
+    rng = np.random.default_rng(15)
+    vals = ([int.from_bytes(rng.bytes(32), "little") % ff.R for _ in range(n)]
+            if kind == "uniform" else [1] * n)
+    stats = {}
+    plan = pm.bucket_plan_split(fo.to_tensor(fo.ints_to_words(vals), cuda), 8,
+                                stats=stats)
+    assert stats["max_row_load"] <= pm.default_target(n, 8) < stats["max_load"]
+    before = build.LAUNCHES["msm_accumulate"]
+    acc = pm.accumulate(tx, ty, *plan)
+    assert build.LAUNCHES["msm_accumulate"] == before + 1
+    assert torch.equal(acc, pm.accumulate_plain(tx, ty, *plan))
+    tot = pm.reduce(acc, *plan[2].shape)
+    got = pm.combine_rows_host(tot.unbind(1), plan[3], 8)
+    assert got == ff.g1_msm(params.g_host_points(), vals)
+
+
+def test_device_plan_matches_host_copy_2e16(cuda):
+    """The split plan built on the card equals the numpy copy's at the
+    prover's commit size."""
+    rng = np.random.default_rng(16)
+    words = fo.ints_to_words([int.from_bytes(rng.bytes(32), "little") % ff.R
+                              for _ in range(1 << 16)])
+    got = pm.bucket_plan_split(fo.to_tensor(words, cuda), 8)
+    want = pm.host_bucket_plan_split(fo.words_to_canonical16(words), 8)
+    for g, w in zip(got, want):
+        assert g.is_cuda and np.array_equal(g.cpu().numpy(), w)
+
+
+def test_k16_device_commit_matches_native(cuda):
+    """One K=16 device commit (the prover's path: scalars stay on the
+    card) equals the native MSM of the same coefficients."""
+    params = srs.unsafe_setup_accel(16, device=cuda)
+    params.commit_mode = "device"
+    rng = np.random.default_rng(17)
+    vals = [int.from_bytes(rng.bytes(32), "little") % ff.R
+            for _ in range(params.n - 5)]  # zero-padded to n on the card
+    params.commit_log = []
+    got = params.commit_coeff_mont(accel.ints_to_mont(vals, cuda))
+    (rec,) = params.commit_log
+    assert rec["mode"] == "device" and rec["max_row_load"] <= 128
+    assert list(rec["split_s"]) == ["scalars", "plan", "accumulate", "reduce",
+                                    "combine"]
+    assert got == ff.g1_msm(params.g_host_points()[: len(vals)], vals)
 
 
 @pytest.mark.parametrize("windows,nbuckets", [(32, 256), (3, 16), (2, 600)])

@@ -34,12 +34,16 @@ def _points(seed, n):
 
 @pytest.mark.parametrize("c", [8, 4, 5])
 def test_planner_matches_reference(c):
-    scal = jfo.ints_to_std(_scalars(40 + c, 300))
+    """The numpy plain-plan copy (the split copy's base) and the device
+    digits against the reference."""
+    vals = _scalars(40 + c, 300)
+    scal = jfo.ints_to_std(vals)
     want = jmsm.host_bucket_plan(scal, c)
     got = pm.host_bucket_plan(scal, c)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
-    assert np.array_equal(pm.scalar_digits(scal, c),
+    words = fo.to_tensor(fo.ints_to_words(vals), "cpu")
+    assert np.array_equal(pm.scalar_digits(words, c).numpy(),
                           np.asarray(jmsm.scalar_digits(jnp.asarray(scal), c)))
 
 
@@ -103,11 +107,11 @@ def test_full_add_matches_pallas_rows():
 
 def _msm(points_int, scalars_int, c):
     """Host int points (None = identity) / scalars -> affine int result,
-    through plan -> accumulate -> reduce -> combine on the CPU."""
+    through split plan -> accumulate -> reduce -> row combine on the CPU."""
     table = pm.affine_table(cv.from_affine_ints(points_int, "cpu"))
-    scal = fo.words_to_canonical16(fo.ints_to_words([s % ff.R for s in scalars_int]))
-    totals = pm.msm_totals(table, scal, c)
-    return pm.combine_windows_host(tuple(totals[:, i] for i in range(3)), c)
+    scal = fo.to_tensor(fo.ints_to_words([s % ff.R for s in scalars_int]), "cpu")
+    totals, weights = pm.msm_totals(table, scal, c)
+    return pm.combine_rows_host(totals.unbind(1), weights, c)
 
 
 @pytest.mark.parametrize("n,c", [(64, 8), (256, 8), (200, 4)])
@@ -205,8 +209,15 @@ def test_decompress_matches_host_sqrt():
 
 def test_kernel_wrappers_validate():
     t = torch.zeros((4, 8), dtype=torch.int32)
-    plan = tuple(torch.zeros(s, dtype=torch.int32) for s in ((2, 4), (2, 16), (2, 16)))
+    plan = tuple(torch.zeros(s, dtype=torch.int32)
+                 for s in ((2, 4), (3, 16), (3, 16), (3,)))
+    assert pm.accumulate(t, t, *plan).shape == (48, 3, 8)
     with pytest.raises(ValueError):
         pm.accumulate(t, t[:3], *plan)
+    for bad in (plan[3][:2], plan[3].long(), torch.zeros(6, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError):  # weights: shape, type, layout
+            pm.accumulate(t, t, *plan[:3], bad)
+    with pytest.raises(ValueError):
+        pm.bucket_plan_split(t.long(), 8)
     with pytest.raises(ValueError):
         pm.reduce(torch.zeros((31, 3, 8), dtype=torch.int32), 2, 16)

@@ -97,14 +97,22 @@ def test_keygen_accel_matches_host(keys, name):
 
 
 def test_keygen_accel_device_commits(keys):
-    """keygen with device commits gives the same key."""
+    """keygen with device commits gives the same key; each commit's record
+    splits its time into the five phases."""
     _params, _pk, vk, aparams, _apk, _avk = keys["simple_lookup"]
     dparams = accel.AccelParams.from_params(aparams.host, "device",
                                             device="cpu",
                                             msm_window=CPU_WINDOW)
+    dparams.commit_log = []
     avk, _ = accel.keygen_accel(plookup.SimpleLookupCircuit(),
                                 SimpleLookupCircuit.K, dparams)
     assert avk.transcript_repr() == vk.transcript_repr()
+    assert dparams.commit_log
+    for rec in dparams.commit_log:
+        assert rec["mode"] == "device"
+        assert list(rec["split_s"]) == ["scalars", "plan", "accumulate",
+                                        "reduce", "combine"]
+        assert sum(rec["split_s"].values()) <= rec["seconds"]
 
 
 _PROOFS: dict = {}
