@@ -6,8 +6,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
   1. device: the card's name, power limit and top SM clock; no CUDA -> exit 2;
   2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc
      (one nvcc per source, in parallel), g++ the native host library; the
-     registers and spill bytes of the sponge-chain, accumulate and reduce
-     kernels from ptxas;
+     registers and spill bytes of the field, row-program, sponge-chain,
+     accumulate, reduce and transform kernels from ptxas;
   3. setup + keygen: the K=16 SRS (fixed-base add tree) and the zkevm-shape
      key built on the card, device commits, fingerprint checked; launch
      counts read for that path;
@@ -21,8 +21,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
      built on the card against the numpy copy's, the row combine against
      the native MSM; max bucket load, max row load, rows, the plan's time),
      4d padd on 2^14 special pairs (identities, doubling, inverse) and on
-     every level of the SRS add tree (2^20 .. 2^16 pairs), 4e NTT butterfly
-     and scale at k=16 (forward == native fr_ntt, inverse(forward) == input);
+     every level of the SRS add tree (2^20 .. 2^16 pairs), 4e the batched
+     transform at k=16 (one vector forward and inverse; the quotient shard's
+     batch of columns with a coset factor) and the scale (forward == native
+     fr_ntt, inverse(forward) == input), 4f the row-program kernel on the
+     K=16 quotient program over random columns;
   5. parity: the batched verifier over the 4 committed proofs must give the
      host value-context oracle's (w_x, w_g) and pass;
   6. main verify path: batch 128 (4 proofs tiled 32x), one warm and REPS
@@ -37,9 +40,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
 Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
-path; for the three redesigned kernels, their registers and spills from
-ptxas; for the sponge, the whole chain's times; for the accumulate, the
-plan's time), the nvidia-smi line, and the
+path; for the redesigned kernels and the field kernel, their registers and
+spills from ptxas; for the sponge, the whole chain's times; for the
+accumulate, the plan's time; for the transform, one vector's times beside
+the batch's; for the row program, its size), the nvidia-smi line, and the
 final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
@@ -59,7 +63,7 @@ import torch
 
 SEED = 20261016
 REPS = 3
-PROFILE_TRIES = 3       # profiles of one kernel before its time counts as lost
+PROFILE_TRIES = 5       # profiles of one kernel before its time counts as lost
 PADD_PAIRS = 1 << 14    # special cases: identities, P + P, P + (-P)
 PLAIN_CHUNK = 1 << 18   # rows per call of a twin at the prover's sizes
 NTT_K = 16
@@ -76,22 +80,26 @@ MIXED_ADD_MULS = 11             # RCB15 Algorithm 8
 
 KERNEL_SOURCES = {
     "field": ("field.cu", "ops/field_pallas.py:106"),
+    "field_program": ("field.cu", "ops/field_pallas.py:106"),
     "poseidon": ("poseidon.cu", "ops/poseidon_pallas.py:94"),
     "msm_accumulate": ("msm.cu", "ops/msm_pallas.py:252"),
     "msm_reduce": ("msm.cu", "ops/msm_pallas.py:285"),
     "curve_padd": ("curve.cu", "ops/curve_pallas.py:147"),
-    "ntt_butterfly": ("ntt.cu", "ops/ntt_pallas.py:168"),
+    "ntt_transform": ("ntt.cu", "ops/ntt_pallas.py:168"),
     "ntt_scale": ("ntt.cu", "ops/ntt_pallas.py:179"),
 }
-PTXAS_SYMBOL = {"poseidon": "poseidon_chain_kernel",
+PTXAS_SYMBOL = {"field": "field_kernel",
+                "field_program": "field_program_kernel",
+                "poseidon": "poseidon_chain_kernel",
                 "msm_accumulate": "accumulate_kernel",
-                "msm_reduce": "reduce_kernel"}
+                "msm_reduce": "reduce_kernel",
+                "ntt_transform": "ntt_pass_kernel"}
 PATH_KERNELS = {
-    "setup_keygen": ("curve_padd", "field", "ntt_butterfly", "ntt_scale",
+    "setup_keygen": ("curve_padd", "field", "ntt_transform", "ntt_scale",
                      "msm_accumulate", "msm_reduce"),
     "verify": ("field", "poseidon", "msm_accumulate", "msm_reduce"),
-    "prove": ("field", "ntt_butterfly", "ntt_scale", "msm_accumulate",
-              "msm_reduce"),
+    "prove": ("field", "field_program", "ntt_transform", "ntt_scale",
+              "msm_accumulate", "msm_reduce"),
 }
 
 
@@ -114,19 +122,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, symbol: str, reps: int) -> float:
-    """Device ms per launch of the CUDA function `symbol` over `reps` runs
-    of `fn` after one warm run: torch.profiler's device time, which the
-    host's launch rate does not hold back. A profile that records no device
-    time for `symbol` (the card's tracer drops one now and then) is taken
-    again, up to PROFILE_TRIES times."""
+def kernel_ms(fn, symbol: str, reps: int, launches: int = 1) -> float:
+    """Device ms per call of `fn`, which launches the CUDA function `symbol`
+    `launches` times, over `reps` runs after one warm run: torch.profiler's
+    device time, which the host's launch rate does not hold back, as the
+    mean of the recorded launches times `launches`. The card's tracer drops
+    a record now and then (more often late in a long run), so a profile
+    with fewer than reps * launches records is taken again, up to
+    PROFILE_TRIES times, each after the allocator's cached blocks are
+    returned to the driver; if none is whole, the fullest counts and a line
+    says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     pat = re.compile(r"(^|\s)h2t::" + symbol + r"[<(]")  # csrc's namespace
+    want = reps * launches
+    best = (0, 0.0)
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -136,10 +152,22 @@ def kernel_ms(fn, symbol: str, reps: int) -> float:
                 total_us += (getattr(ev, "self_device_time_total", 0)
                              or getattr(ev, "self_cuda_time_total", 0))
                 count += ev.count
-        if count and total_us > 0:
-            return total_us / 1e3 / count
-    raise AssertionError(f"torch.profiler saw no device time for {symbol} "
-                         f"in {PROFILE_TRIES} profiles")
+        if count > want:
+            raise AssertionError(f"{count} launches of {symbol} in {reps} "
+                                 f"calls, not {want}")
+        if total_us > 0 and count > best[0]:
+            best = (count, total_us)
+        if best[0] == want:
+            break
+    count, total_us = best
+    if not count:
+        raise AssertionError(f"torch.profiler saw no device time for {symbol} "
+                             f"in {PROFILE_TRIES} profiles")
+    if count < want:
+        phase("profile", f"{symbol}: torch.profiler recorded {count} of "
+              f"{want} launches in the fullest of {PROFILE_TRIES} profiles; "
+              f"the time is their mean x {launches}")
+    return total_us / 1e3 / count * launches
 
 
 def timed(fn, symbol: str, reps: int) -> dict:
@@ -190,6 +218,16 @@ def rand_field(spec, shape, rng, device):
 
     vals = rand_ints(spec.modulus, int(np.prod(shape)), rng)
     return fo.to_tensor(fo.ints_to_words(vals), device).reshape(*shape, 8)
+
+
+def rand_fr_bulk(shape, rng, device) -> torch.Tensor:
+    """Canonical Fr words, shape + (8,), made in bulk: uniform words with
+    the top word below r's (so every value is below r)."""
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    w = rng.integers(0, 1 << 32, size=(*shape, 8), dtype=np.uint64)
+    w[..., 7] %= int(fo.FR.p_words[7])
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
 
 
 def value_oracle(params, vk, proofs, insts):
@@ -523,7 +561,12 @@ def check_padd(dev, rng, params, bound, results):
                                  bound=bound(m * 288, m * FULL_ADD_MULS * MONT_MUL_IMAD))
 
 
-def check_ntt(dev, rng, bound, results):
+def check_ntt(dev, rng, bound, results, batch: int):
+    """The transform kernel at k = 16: one vector, and a batch of `batch`
+    columns with a coset factor (the quotient shard's extension), each
+    against its twin word for word (the batch twin a few columns at a
+    time); forward == native fr_ntt; inverse(forward) == input; the scale
+    kernel against its twin."""
     from halo2_snark_aggregator_tpu_torch import native
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
@@ -532,52 +575,98 @@ def check_ntt(dev, rng, bound, results):
     k = NTT_K
     n = 1 << k
     vals = rand_ints(fo.FR.modulus, n, rng)
-    x = fo.mont_words(fo.FR, vals, dev)
-    rev, tw, n_inv = pn.device_plan(k, True, dev)
-    xk, xp = x[rev], x[rev]
-    err = 0
-    for s in range(k):
-        half = 1 << s
-        pn.butterfly(xk, tw[half - 1 : 2 * half - 1], half)
-        pn.butterfly_plain(xp, tw[half - 1 : 2 * half - 1], half)
-        err = max(err, max_abs_err(xk, xp))
-    err_s = max_abs_err(pn.scale(xk, n_inv), pn.scale_plain(xk, n_inv))
-    if err or err_s:
-        raise AssertionError(f"ntt kernels differ from their twins: {err}, {err_s}")
-    fwd = pn.ntt_auto(x, k)
+    x = fo.mont_words(fo.FR, vals, dev)[None]
+    xb = rand_fr_bulk((batch, n), rng, dev)
+    coset = rand_fr_bulk((n,), rng, dev)
+    errs = []
+    for inverse in (False, True):
+        errs.append(max_abs_err(pn.ntt_batch(x, k, inverse),
+                                pn.ntt_batch_plain(x, k, inverse)))
+    got = pn.ntt_batch(xb, k, coset=coset)
+    want, batch_plain_ms = once_ms(lambda: torch.cat([
+        pn.ntt_batch_plain(xb[i : i + 8], k, coset=coset)
+        for i in range(0, batch, 8)]))
+    errs.append(max_abs_err(got, want))
+    fwd = pn.ntt_auto(x[0], k)
     if fo.from_mont_words(fo.FR, fwd) != native.fr_ntt(vals, omega_for_k(k)):
         raise AssertionError("forward NTT differs from the native fr_ntt")
-    if not torch.equal(pn.ntt_auto(fwd, k, inverse=True), x):
+    if not torch.equal(pn.ntt_auto(fwd, k, inverse=True), x[0]):
         raise AssertionError("inverse(forward(x)) != x")
-
-    def stages(fn):
-        def run():
-            for s in range(k):
-                half = 1 << s
-                fn(xk, tw[half - 1 : 2 * half - 1], half)
-        return run
-
-    tb = timed(stages(pn.butterfly), "ntt_butterfly_kernel", 10)
-    tb["launch_ms"] /= k
-    tb_p = cuda_ms(stages(pn.butterfly_plain), 1) / k
-    ts = (timed(lambda: pn.scale(xk, n_inv, out=xk), "ntt_scale_kernel", 20),
-          cuda_ms(lambda: pn.scale_plain(xk, n_inv), 3))
-    t_ntt = cuda_ms(lambda: pn.ntt_auto(x, k), 10)
-    t_intt = cuda_ms(lambda: pn.ntt_auto(x, k, inverse=True), 10)
-    phase("4e ntt", f"k={k}: butterfly and scale exact; forward == native "
-          f"fr_ntt, inverse(forward) == input; butterfly {tb['ms']:.4f} ms "
-          f"device, {tb['launch_ms']:.4f} ms launch per stage (plain "
-          f"{tb_p:.2f} ms), scale {ts[0]['ms']:.4f} ms device, "
-          f"{ts[0]['launch_ms']:.4f} ms launch (plain {ts[1]:.2f} ms), NTT "
-          f"{t_ntt:.3f} ms, INTT {t_intt:.3f} ms (events)")
-    stage_bytes = sum(n * 64 + (1 << s) * 32 for s in range(k)) / k
-    results["ntt_butterfly"] = dict(
-        max_abs_err=err, plain_ms=tb_p, **tb, shape=f"n=2^{k}, per stage",
-        bound=bound(stage_bytes, n // 2 * MONT_MUL_IMAD), ntt_ms=t_ntt,
-        intt_ms=t_intt)
+    _rev, _tw, n_inv = pn.device_plan(k, True, dev)
+    xs = x[0].clone()
+    err_s = max_abs_err(pn.scale(xs, n_inv), pn.scale_plain(xs, n_inv))
+    err = max(errs)
+    if err or err_s:
+        raise AssertionError(f"ntt kernels differ from their twins: {err}, {err_s}")
+    passes = len(pn.pass_bounds(k))
+    t1 = dict(ms=kernel_ms(lambda: pn.ntt_batch(x, k), "ntt_pass_kernel", 10,
+                           passes),
+              launch_ms=cuda_ms(lambda: pn.ntt_batch(x, k), 10))
+    tb = dict(ms=kernel_ms(lambda: pn.ntt_batch(xb, k, coset=coset),
+                           "ntt_pass_kernel", 5, passes),
+              launch_ms=cuda_ms(lambda: pn.ntt_batch(xb, k, coset=coset), 5))
+    _out, t1_plain = once_ms(lambda: pn.ntt_batch_plain(x, k))
+    ts = (timed(lambda: pn.scale(xs, n_inv, out=xs), "ntt_scale_kernel", 20),
+          cuda_ms(lambda: pn.scale_plain(xs, n_inv), 3))
+    t_intt = cuda_ms(lambda: pn.ntt_batch(x, k, inverse=True), 10)
+    phase("4e ntt", f"k={k}: the transform ({passes} launches, passes "
+          f"{pn.pass_bounds(k)}) exact against its twin at b=1 forward and "
+          f"inverse and at b={batch} with a coset factor; forward == native "
+          f"fr_ntt, inverse(forward) == input; b=1 {t1['ms']:.4f} ms device, "
+          f"{t1['launch_ms']:.4f} ms events (plain {t1_plain:.1f} ms); "
+          f"b={batch} {tb['ms']:.4f} ms device ({tb['ms'] / batch:.4f} a "
+          f"column), {tb['launch_ms']:.4f} ms events (plain, 8 columns a "
+          f"call, {batch_plain_ms:.1f} ms); INTT b=1 {t_intt:.4f} "
+          f"ms events; scale {ts[0]['ms']:.4f} ms device, "
+          f"{ts[0]['launch_ms']:.4f} ms launch (plain {ts[1]:.2f} ms)")
+    tw_bytes = (n - 1) * 32
+    results["ntt_transform"] = dict(
+        max_abs_err=err, plain_ms=batch_plain_ms, **tb,
+        shape=f"{batch} columns of n=2^{k} with a coset factor (a quotient "
+              f"shard's extension), {passes} launches",
+        bound=bound(batch * n * 64 + tw_bytes + n * 32,
+                    batch * (n // 2 * k + n) * MONT_MUL_IMAD),
+        b1_ms=t1["ms"], b1_launch_ms=t1["launch_ms"], b1_plain_ms=t1_plain,
+        b1_bound_ms=bound(n * 64 + tw_bytes, n // 2 * k * MONT_MUL_IMAD)[0],
+        intt_b1_launch_ms=t_intt)
     results["ntt_scale"] = dict(max_abs_err=err_s, plain_ms=ts[1], **ts[0],
                                 shape=f"n=2^{k}",
                                 bound=bound(n * 64, n * MONT_MUL_IMAD))
+
+
+def check_program(dev, rng, vk, bound, results):
+    """The row-program kernel on the K=16 zkevm-shape quotient program
+    (one proof, random challenges) over random extended columns, against
+    its twin on the card, word for word."""
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.prover import quotient_program as qp
+
+    n = 1 << NTT_K
+    cs = vk.cs
+    ch = rand_ints(ff.R, cs.num_challenges + 4, rng)
+    prog, keys = qp.compile_quotient(cs, 1, ch[4:], *ch[:4])
+    cols = list(rand_fr_bulk((len(keys), n), rng, dev).unbind(0))
+    got = fo.run_program(prog, cols)
+    want, plain_ms = once_ms(lambda: fo.run_program_plain(prog, cols))
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"row-program kernel differs from its twin: {err}")
+    t = timed(lambda: fo.run_program(prog, cols), "field_program_kernel", 10)
+    phase("4f program", f"K=16 quotient program ({len(prog.code)} "
+          f"instructions, {prog.products} products, {prog.n_slots} slots of "
+          f"{fo.PROGRAM_SLOTS}, {len(keys)} columns, {len(prog.refs)} column "
+          f"references, {len(prog.consts)} constants) exact against its twin "
+          f"over 2^{NTT_K} rows; {t['ms']:.4f} ms device, {t['launch_ms']:.4f} "
+          f"ms launch (plain {plain_ms:.1f} ms)")
+    results["field_program"] = dict(
+        max_abs_err=err, plain_ms=plain_ms, **t,
+        shape=f"K=16 quotient shard: {len(prog.code)} instructions, "
+              f"{prog.products} products, {len(keys)} columns x 2^{NTT_K} rows",
+        bound=bound((len(keys) + 1) * n * 32,
+                    prog.products * n * MONT_MUL_IMAD),
+        instructions=len(prog.code), products=prog.products,
+        slots=prog.n_slots, columns=len(keys))
 
 
 def commit_ab(params, rng) -> str:
@@ -627,6 +716,7 @@ def main() -> int:
     from halo2_snark_aggregator_tpu_torch.bench import DUP, card_info
     from halo2_snark_aggregator_tpu_torch.kernels import build
     from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
+    from halo2_snark_aggregator_tpu_torch.prover import quotient_program
 
     dev = dv.cuda_device()
     name = torch.cuda.get_device_name(0)
@@ -684,7 +774,10 @@ def main() -> int:
     check_poseidon(dev, rng, bv, bound, results)
     check_msm(dev, rng, params, bound, results)
     check_padd(dev, rng, params, bound, results)
-    check_ntt(dev, rng, bound, results)
+    ext_cols = len(quotient_program.compile_quotient(
+        vk.cs, 1, [0] * vk.cs.num_challenges, 0, 0, 0, 0)[1])
+    check_ntt(dev, rng, bound, results, ext_cols)
+    check_program(dev, rng, vk, bound, results)
 
     t0 = time.perf_counter()
     want = value_oracle(params, vk, [p for p, _ in uniq], [i for _, i in uniq])
@@ -777,7 +870,10 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": r["shape"],
             **{k: r[k] for k in ("chain_calls", "chain_ms", "chain_launch_ms",
-                                 "plan_ms", "plan_device_ms") if k in r},
+                                 "plan_ms", "plan_device_ms", "b1_ms",
+                                 "b1_launch_ms", "b1_plain_ms", "b1_bound_ms",
+                                 "intt_b1_launch_ms", "instructions",
+                                 "products", "slots", "columns") if k in r},
             **({"ptxas": ptxas[PTXAS_SYMBOL[kname]]}
                if kname in PTXAS_SYMBOL else {})})
     print(json.dumps({"kernels": kernels}))

@@ -38,8 +38,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("field", "poseidon", "msm_accumulate", "msm_reduce", "curve_padd",
-           "ntt_butterfly", "ntt_scale")
+KERNELS = ("field", "field_program", "poseidon", "msm_accumulate",
+           "msm_reduce", "curve_padd", "ntt_transform", "ntt_scale")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}
 
@@ -49,11 +49,13 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "h2t_field": [_I32, _I32, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64, _P,
                   _I32, _P],
+    "h2t_field_program": [_P, _I32, _P, _I32, _P, _I32, _P, _I32, _P, _I64,
+                          _P],
     "h2t_poseidon_chain": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P],
     "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     "h2t_msm_reduce": [_P, _I64, _I64, _I32, _I32, _P, _P],
     "h2t_curve_padd": [_P, _P, _P, _I64, _P],
-    "h2t_ntt_butterfly": [_P, _P, _I64, _I64, _P],
+    "h2t_ntt_pass": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
     "h2t_ntt_scale": [_P, _P, _P, _I64, _P],
 }
 

@@ -21,9 +21,17 @@ out[out_idx[k], lane]. Buffers are (rows, lanes, 8); a broadcast b is
 the identity. On a CUDA tensor the kernel runs; on a CPU tensor its plain
 twin `field_op_plain` runs (the CPU tests' path). Nothing falls back.
 `elementwise` is `field_op` on same-shape (..., 8) tensors.
+
+`run_program` wraps the row-program kernel (csrc/field.cu
+`field_program_kernel`): one straight-line program of Fr MUL / ADD / SUB
+(a `RowProgram`, compiled by prover/quotient_program.py) run once per row
+of n-row columns, its twin `run_program_plain` one instruction at a time
+over whole columns.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -398,3 +406,143 @@ def elementwise(mode: int, spec: FieldSpec, a: torch.Tensor,
     flat = lambda t: t.reshape(-1, 1, WORDS).contiguous()  # noqa: E731
     bf = None if b is None else flat(b.expand_as(a))
     return field_op(mode, spec, flat(a), bf, exponent=exponent).reshape(a.shape)
+
+
+# ---------------------------------------------------------------------------
+# Row programs: the field_program kernel's wrapper and its twin
+# ---------------------------------------------------------------------------
+
+PROGRAM_SLOTS = 32          # csrc/field.cu kProgSlots
+SLOT, COLUMN, CONST = 0, 1, 2
+_KIND_SHIFT = 28
+_INDEX_MASK = (1 << _KIND_SHIFT) - 1
+
+
+def operand(kind: int, index: int) -> int:
+    """An instruction operand: a slot, a column reference (column,
+    rotation) or a constant, by index."""
+    if not 0 <= index <= _INDEX_MASK:
+        raise ValueError(f"operand index {index} out of range")
+    return (kind << _KIND_SHIFT) | index
+
+
+@dataclasses.dataclass
+class RowProgram:
+    """A straight-line Fr program, run once per row i of n-row columns.
+
+    `code` (m, 4) int32: (op, dst slot, operand a, operand b), op MUL / ADD
+    / SUB, the result written to the slot after both operands are read.
+    `refs` (r, 2) int32: (column, rotation); a column operand reads
+    column[(i + rotation) mod n]. `consts` (c, 8) uint32: Montgomery words.
+    `out` is the operand that holds the result. `n_cols` columns are given
+    at each run."""
+
+    code: np.ndarray
+    refs: np.ndarray
+    consts: np.ndarray
+    n_cols: int
+    out: int
+    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        self.code = np.ascontiguousarray(self.code, np.int32).reshape(-1, 4)
+        self.refs = np.ascontiguousarray(self.refs, np.int32).reshape(-1, 2)
+        self.consts = np.ascontiguousarray(self.consts, np.uint32).reshape(-1, WORDS)
+        ops = self.code[:, 0]
+        if not np.isin(ops, (MUL, ADD, SUB)).all():
+            raise ValueError("row program: op other than MUL, ADD, SUB")
+        if ((self.code[:, 1] < 0) | (self.code[:, 1] >= PROGRAM_SLOTS)).any():
+            raise ValueError(f"row program: a slot outside 0 .. {PROGRAM_SLOTS - 1}")
+        if ((self.refs[:, 0] < 0) | (self.refs[:, 0] >= self.n_cols)).any():
+            raise ValueError("row program: a reference to a missing column")
+        limits = {SLOT: PROGRAM_SLOTS, COLUMN: len(self.refs),
+                  CONST: len(self.consts)}
+        for op in [self.out, *self.code[:, 2:].ravel().tolist()]:
+            kind, idx = op >> _KIND_SHIFT, op & _INDEX_MASK
+            if kind not in limits or idx >= limits[kind]:
+                raise ValueError(f"row program: bad operand {op:#x}")
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.code[:, 1].max()) + 1 if len(self.code) else 0
+
+    @property
+    def products(self) -> int:
+        return int((self.code[:, 0] == MUL).sum())
+
+    def tables(self, device):
+        """(code, refs, consts) as int32 tensors on `device` (cached)."""
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(device)
+                for a in (self.code, self.refs, self.consts))
+        return self._tables[key]
+
+
+def _check_columns(prog: RowProgram, cols) -> int:
+    if len(cols) != prog.n_cols:
+        raise ValueError(f"row program wants {prog.n_cols} columns, got {len(cols)}")
+    if not cols:
+        raise ValueError("row program needs at least one column")
+    n = cols[0].shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"row count {n} is not a power of two")
+    for c in cols:
+        if c.dtype != torch.int32 or tuple(c.shape) != (n, WORDS):
+            raise ValueError(f"column: want int32 ({n}, 8), got {c.dtype} "
+                             f"{tuple(c.shape)}")
+        if not c.is_contiguous():
+            raise ValueError("columns must be contiguous")
+        if c.device != cols[0].device:
+            raise ValueError("columns on different devices")
+    return n
+
+
+def run_program_plain(prog: RowProgram, cols) -> torch.Tensor:
+    """The row-program kernel's semantics in plain PyTorch: each instruction
+    over whole columns with the plain twins, a column at rotation rot as
+    `torch.roll(col, -rot)`."""
+    n = _check_columns(prog, cols)
+    dev = cols[0].device
+    consts = to_tensor(prog.consts, dev)
+    slots: list = [None] * PROGRAM_SLOTS
+    rolled: dict = {}
+
+    def value(op: int) -> torch.Tensor:
+        kind, idx = op >> _KIND_SHIFT, op & _INDEX_MASK
+        if kind == SLOT:
+            return slots[idx]
+        if kind == COLUMN:
+            if idx not in rolled:
+                c, rot = prog.refs[idx].tolist()
+                rolled[idx] = torch.roll(cols[c], -rot, dims=0) if rot else cols[c]
+            return rolled[idx]
+        return consts[idx].expand(n, WORDS)
+
+    fns = {MUL: mont_mul, ADD: add, SUB: sub}
+    for op, dst, a, b in prog.code.tolist():
+        slots[dst] = fns[op](FR, value(a), value(b))
+    return value(prog.out).contiguous()
+
+
+def run_program(prog: RowProgram, cols) -> torch.Tensor:
+    """Run `prog` on every row of the (n, 8) Montgomery Fr columns `cols`;
+    returns a new (n, 8) tensor. On CUDA columns: one launch of the
+    row-program kernel, the columns passed as a device table of pointers."""
+    n = _check_columns(prog, cols)
+    dev = cols[0].device
+    if dev.type == "cpu":
+        return run_program_plain(prog, cols)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    code, refs, consts = prog.tables(dev)
+    ptrs = torch.tensor([c.data_ptr() for c in cols], dtype=torch.int64).to(dev)
+    out = torch.empty((n, WORDS), dtype=torch.int32, device=dev)
+    rc = build.library().h2t_field_program(
+        code.data_ptr(), len(prog.code), refs.data_ptr(), len(prog.refs),
+        consts.data_ptr(), len(prog.consts), ptrs.data_ptr(), prog.out,
+        out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "field_program")
+    build.count_launch("field_program")
+    return out

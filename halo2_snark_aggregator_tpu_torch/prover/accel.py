@@ -5,10 +5,15 @@ Port of halo2_snark_aggregator_tpu/prover/accel.py (`AccelParams`,
 `AccelPk`, `keygen_accel`, `create_proof_accel`, `_compute_h_sharded` and
 their helpers). The pipeline is the reference's:
 
-  * Lagrange <-> coefficient moves and coset extensions are NTTs
-    (ops/ntt.ntt_auto: the butterfly and scale kernels);
-  * every product, sum and difference of polynomials is the field kernel
-    (ops/field.elementwise);
+  * Lagrange <-> coefficient moves and coset extensions are NTTs, batched
+    where the prover has lists of columns (ops/ntt.ntt_batch: the pass and
+    scale kernels; a column list is one batch);
+  * products, sums and differences of polynomials are the field kernel
+    (ops/field.elementwise), except where a whole expression is evaluated
+    row by row: the quotient's folds (one program a proof, one launch a
+    coset shard), the permutation's grand-product factors and the
+    opening's combinations are row programs (prover/quotient_program.py)
+    run by the row-program kernel (ops/field.run_program);
   * commitments are Pippenger MSMs: on the device through ops/msm.msm_totals
     (the reference's split plan, as `msm_staged_split` commits, built on
     the card; the accumulate and reduce kernels; window `msm_window`) over
@@ -17,8 +22,9 @@ their helpers). The pipeline is the reference's:
     and the reference's "auto" rule, host MSMs up to k = 22 while the
     native library loads, is not ported);
   * the quotient h(X) is evaluated one coset shard at a time
-    (`_compute_h_sharded`): shard s holds evaluations on zeta w_ext^s H, a
-    rotation is a roll, and the vanishing divisor is one constant a shard;
+    (`_compute_h_sharded`): shard s holds evaluations on zeta w_ext^s H (the
+    columns it reads extended in one batch), a rotation is a row offset,
+    and the vanishing divisor is one constant a shard;
   * grand products are log-depth doubling prefix products and one batched
     inversion; KZG openings use the NTT form of Kate division.
 
@@ -44,13 +50,14 @@ from ..ff.bn254 import FR_DELTA, FR_GENERATOR, R
 from ..ops import curve as cv
 from ..ops import field as fo
 from ..ops import msm as msm_ops
-from ..ops.ntt import ntt_auto as ntt_dev
+from ..ops.ntt import ntt_batch
 from ..protocol.plonk import ConstraintSystem, Expression, VerifyingKey
 from ..protocol.queryplan import query_plan, rotation_sets
 from .domain import Domain, omega_for_k
 from .keygen import Assignment, ProvingKey
 from .kzg import ParamsKZG
 from .prove import _permute_pair
+from .quotient_program import compile_fold, compile_perm_products, compile_quotient
 
 FR = fo.FR
 WORDS = fo.WORDS
@@ -166,6 +173,16 @@ def _batch_inv(v: torch.Tensor) -> torch.Tensor:
     pre_shift = torch.cat([one, pre[:-1]])
     suf_shift = torch.cat([suf[1:], one])
     return m_mul(m_mul(pre_shift, suf_shift), inv_total)
+
+
+def ntt_many(cols, k: int, inverse: bool, coset=None) -> list:
+    """The NTTs of a list of (2^k, 8) columns, or of a (b, 2^k, 8) batch,
+    as one `ntt_batch` (with its optional coset factor); the results are
+    views of the batch, in order."""
+    if len(cols) == 0:
+        return []
+    x = cols if torch.is_tensor(cols) else torch.stack(cols)
+    return list(ntt_batch(x, k, inverse, coset=coset).unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +388,7 @@ def keygen_accel(circuit, k: int, params: AccelParams,
 
     domain = Domain(k)
     fixed_lagrange = [ints_to_mont(col, dev) for col in assignment.fixed]
-    fixed_coeff = [ntt_dev(col, k, inverse=True) for col in fixed_lagrange]
+    fixed_coeff = ntt_many(fixed_lagrange, k, inverse=True)
 
     # permutation mapping: cycle-splice union-find over flat lists
     cols = cs.permutation_columns
@@ -405,7 +422,7 @@ def keygen_accel(circuit, k: int, params: AccelParams,
     map_dev = map_flat.to(dev)
     sigmas_lagrange = [m_mul(omega_pows[map_dev[ci] % n], deltas[map_dev[ci] // n])
                        for ci in range(ncols)]
-    sigmas_coeff = [ntt_dev(s, k, inverse=True) for s in sigmas_lagrange]
+    sigmas_coeff = ntt_many(sigmas_lagrange, k, inverse=True)
 
     log.info("keygen_accel: committing %d fixed + %d sigma cols",
              len(fixed_coeff), len(sigmas_coeff))
@@ -453,13 +470,9 @@ def create_proof_accel(
     def scalar(v: int) -> torch.Tensor:
         return _bcast(mont_scalar(v, dev), n)
 
-    def intt(arr):
+    def ntts(cols, inverse: bool, coset=None):
         with timer.span("ntt"):
-            return ntt_dev(arr, k, inverse=True)
-
-    def ntt(arr):
-        with timer.span("ntt"):
-            return ntt_dev(arr, k, inverse=False)
+            return ntt_many(cols, k, inverse, coset)
 
     def commit(coeffs):
         with timer.span("commit"):
@@ -479,15 +492,13 @@ def create_proof_accel(
         instance_coeff = []
         for insts in instances_per_proof:
             assert len(insts) == cs.num_instance_columns
-            cols_l, cols_c = [], []
+            cols_l = []
             for vals in insts:
                 assert len(vals) <= usable
-                col = to_mont(list(vals) + [0] * (n - len(vals)))
-                cols_l.append(col)
-                cols_c.append(intt(col))
+                cols_l.append(to_mont(list(vals) + [0] * (n - len(vals))))
                 transcript.common_point(params.commit_lagrange_ints(list(vals)))
             instance_lagrange.append(cols_l)
-            instance_coeff.append(cols_c)
+            instance_coeff.append(ntts(cols_l, True))
 
         # -- 2. advice: per-phase synthesis -> blind -> commit -> challenges
         # (mirrors prove.py exactly, including the blinding RNG call order)
@@ -502,15 +513,17 @@ def create_proof_accel(
                     assignment = Assignment(cs, n, usable, instances_per_proof[p],
                                             challenges=challenges)
                     circuits[p].synthesize(config, assignment)
-                for col_idx, col_phase in enumerate(cs.advice_column_phase):
-                    if col_phase == phase:
-                        col = list(assignment.advice[col_idx])
-                        for r in range(usable, n):
-                            col[r] = rand_fr()
-                        lag = to_mont(col)
-                        advice_lagrange[p][col_idx] = lag
-                        advice_coeff[p][col_idx] = intt(lag)
-                        transcript.write_point(commit(advice_coeff[p][col_idx]))
+                in_phase = [c for c, ph in enumerate(cs.advice_column_phase)
+                            if ph == phase]
+                for col_idx in in_phase:
+                    col = list(assignment.advice[col_idx])
+                    for r in range(usable, n):
+                        col[r] = rand_fr()
+                    advice_lagrange[p][col_idx] = to_mont(col)
+                coeffs = ntts([advice_lagrange[p][c] for c in in_phase], True)
+                for col_idx, coeff in zip(in_phase, coeffs):
+                    advice_coeff[p][col_idx] = coeff
+                    transcript.write_point(commit(coeff))
             for ch_idx, ch_phase in enumerate(cs.challenge_phase):
                 if ch_phase == phase:
                     challenges[ch_idx] = transcript.squeeze_challenge()
@@ -563,12 +576,13 @@ def create_proof_accel(
                                       s_perm=to_mont(s_perm)))
             lookups_data.append(per_proof)
 
-        for p in range(num_proofs):
-            for lk in lookups_data[p]:
-                lk["a_coeff"] = intt(lk["a_perm"])
-                lk["s_coeff"] = intt(lk["s_perm"])
-                transcript.write_point(commit(lk["a_coeff"]))
-                transcript.write_point(commit(lk["s_coeff"]))
+        all_lookups = [lk for per_proof in lookups_data for lk in per_proof]
+        perm_coeffs = ntts([lk[key] for lk in all_lookups
+                            for key in ("a_perm", "s_perm")], True)
+        for i, lk in enumerate(all_lookups):
+            lk["a_coeff"], lk["s_coeff"] = perm_coeffs[2 * i : 2 * i + 2]
+            transcript.write_point(commit(lk["a_coeff"]))
+            transcript.write_point(commit(lk["s_coeff"]))
 
         beta = transcript.squeeze_challenge()
         gamma = transcript.squeeze_challenge()
@@ -606,15 +620,15 @@ def create_proof_accel(
             last_z = 1
             for chunk_idx in range(0, len(perm_cols), chunk_len):
                 chunk = perm_cols[chunk_idx : chunk_idx + chunk_len]
-                num = one_v
-                den = one_v
+                cols = {("omega",): omega_pows}
                 for j, col in enumerate(chunk):
-                    v = col_rows(col, p)
-                    sigma = apk.sigmas_lagrange[chunk_idx + j]
-                    do = m_mul(omega_pows,
-                               scalar(pow(FR_DELTA, chunk_idx + j, R)))
-                    num = m_mul(num, m_add(v, m_add(m_mul(beta_b, do), gamma_b)))
-                    den = m_mul(den, m_add(v, m_add(m_mul(beta_b, sigma), gamma_b)))
+                    cols[("v", j)] = col_rows(col, p)
+                    cols[("sigma", j)] = apk.sigmas_lagrange[chunk_idx + j]
+                num, den = [
+                    fo.run_program(prog, [cols[key] for key in keys])
+                    for prog, keys in compile_perm_products(
+                        [pow(FR_DELTA, chunk_idx + j, R)
+                         for j in range(len(chunk))], beta, gamma)]
                 # mask the blinded tail out of the product (den = num = 1)
                 num = m_select(usable_mask, num, one_v)
                 den = m_select(usable_mask, den, one_v)
@@ -623,7 +637,8 @@ def create_proof_accel(
                 sets.append(z)
             perm_z.append(sets)
 
-        perm_z_coeff = [[intt(z) for z in sets] for sets in perm_z]
+        z_coeffs = iter(ntts([z for sets in perm_z for z in sets], True))
+        perm_z_coeff = [[next(z_coeffs) for _ in sets] for sets in perm_z]
         for p in range(num_proofs):
             for zc in perm_z_coeff[p]:
                 transcript.write_point(commit(zc))
@@ -637,10 +652,9 @@ def create_proof_accel(
                 den = m_select(usable_mask, den, one_v)
                 tail = [rand_fr() for _ in range(n - usable - 1)]
                 lk["z"], _ = grand_product(num, den, 1, tail)
-        for p in range(num_proofs):
-            for lk in lookups_data[p]:
-                lk["z_coeff"] = intt(lk["z"])
-                transcript.write_point(commit(lk["z_coeff"]))
+        for lk, zc in zip(all_lookups, ntts([lk["z"] for lk in all_lookups], True)):
+            lk["z_coeff"] = zc
+            transcript.write_point(commit(zc))
 
         # -- 6. vanishing random poly ---------------------------------------
         random_poly = to_mont([rand_fr() for _ in range(n)])
@@ -653,7 +667,7 @@ def create_proof_accel(
             h_chunks = _compute_h_sharded(
                 apk, num_proofs, advice_coeff, instance_coeff, lookups_data,
                 perm_z_coeff, challenge_list, theta, beta, gamma, y, dev,
-                ntt_fn=lambda a, inverse: (intt(a) if inverse else ntt(a)))
+                ntts=ntts)
         qd = vk.quotient_poly_degree()
         assert len(h_chunks) >= qd
         h_pieces = h_chunks[:qd]
@@ -732,20 +746,19 @@ def create_proof_accel(
                 transcript.write_scalar(ev(lk["s_coeff"], x))
 
         v = transcript.squeeze_challenge()
-        v_b = scalar(v)
 
         # -- 9. GWC multiopen: NTT-form Kate division per rotation set ------
         plan = query_plan(vk, num_proofs)
         for rot, refs in rotation_sets(plan):
             z = domain.rotate_omega(x, rot)
-            q = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
-            for ref in reversed(refs):
-                q = m_add(m_mul(q, v_b), poly_for(ref))
+            q = fo.run_program(compile_fold(len(refs), v),
+                               [poly_for(ref) for ref in reversed(refs)])
             qz = ev(q, z)
             # w(omega^i) = (q(omega^i) - q(z)) / (omega^i - z)
             den = m_sub(omega_pows, scalar(z))
-            w_lag = m_mul(m_sub(ntt(q), scalar(qz)), _batch_inv(den))
-            transcript.write_point(commit(intt(w_lag)))
+            w_lag = m_mul(m_sub(ntts([q], False)[0], scalar(qz)),
+                          _batch_inv(den))
+            transcript.write_point(commit(ntts([w_lag], True)[0]))
 
     return transcript.finalize()
 
@@ -758,22 +771,24 @@ def create_proof_accel(
 def _compute_h_sharded(
     apk: AccelPk, num_proofs: int, advice_coeff, instance_coeff,
     lookups_data, perm_z_coeff, challenges: list[int],
-    theta: int, beta: int, gamma: int, y: int, dev, ntt_fn,
+    theta: int, beta: int, gamma: int, y: int, dev, ntts,
 ) -> list[torch.Tensor]:
     """The quotient's coefficient chunks [h_0 .. h_{ratio-1}] (each (n, 8)
     Montgomery), low chunk first, one size-n coset shard at a time.
 
-    Shard s holds evaluations at {zeta w_ext^s omega^t}_t. A rotation by
-    `rot` rows is a roll by -rot within the shard; the vanishing polynomial
-    X^n - 1 is the constant zeta^n w_ext^{sn} - 1 on shard s. `ntt_fn(a,
-    inverse)` runs every size-n NTT."""
+    Shard s holds evaluations at {zeta w_ext^s omega^t}_t. The numerator's
+    folds are one row program (prover/quotient_program.compile_quotient),
+    compiled once and run once a shard over the shard's extended columns:
+    a rotation by `rot` rows reads row (t + rot) mod n of the shard. The
+    vanishing polynomial X^n - 1 is the constant zeta^n w_ext^{sn} - 1 on
+    shard s. `ntts(cols, inverse, coset=None)` (`ntt_many` over this
+    domain) runs every NTT."""
     vk = apk.vk
     cs = vk.cs
     domain = apk.domain
     k, n = domain.k, domain.n
     bf = cs.blinding_factors()
     usable = n - (bf + 1)
-    chunk_len = cs.permutation_chunk_len()
     ratio = 1  # coset shards: the least power of two >= deg - 1
     while ratio < max(cs.degree() - 1, 1):
         ratio *= 2
@@ -785,138 +800,55 @@ def _compute_h_sharded(
     def scalar(v: int) -> torch.Tensor:
         return _bcast(mont_scalar(v, dev), n)
 
-    def indicator(rows) -> torch.Tensor:
-        e = [0] * n
-        for r in rows:
-            e[r] = 1
-        return ntt_fn(ints_to_mont(e, dev), True)
+    prog, keys = compile_quotient(cs, num_proofs, challenges, theta, beta,
+                                  gamma, y)
 
-    # l0 / l_last / l_blind coefficient forms
-    l0_c = indicator([0])
-    ll_c = indicator([usable])
-    lb_c = indicator(range(usable + 1, n))
+    # l0 / l_last / l_blind coefficient forms, and p(X) = X
+    onehot = torch.zeros((3, n, WORDS), dtype=torch.int32)  # standard form
+    onehot[0, 0, 0] = onehot[1, usable, 0] = 1
+    onehot[2, usable + 1 :, 0] = 1
+    indicators = ntts(m_to_mont(onehot.to(dev)), True)
+    x_poly_c = ints_to_mont([0, 1] + [0] * (n - 2), dev)
 
-    y_b = scalar(y)
-    theta_b = scalar(theta)
-    beta_b = scalar(beta)
-    gamma_b = scalar(gamma)
-    one_b = scalar(1)
+    def coeff_of(key: tuple) -> torch.Tensor:
+        kind = key[0]
+        if kind in ("l0", "l_last", "l_blind"):
+            return indicators[("l0", "l_last", "l_blind").index(kind)]
+        if kind == "x":
+            return x_poly_c
+        if kind == "fixed":
+            return apk.fixed_coeff[key[1]]
+        if kind == "sigma":
+            return apk.sigmas_coeff[key[1]]
+        p, i = key[1], key[2]
+        if kind == "advice":
+            return advice_coeff[p][i]
+        if kind == "instance":
+            return instance_coeff[p][i]
+        if kind == "perm_z":
+            return perm_z_coeff[p][i]
+        return lookups_data[p][i][{"lookup_z": "z_coeff", "lookup_a": "a_coeff",
+                                   "lookup_s": "s_coeff"}[kind]]
 
-    x_poly_c = ints_to_mont([0, 1] + [0] * (n - 2), dev)  # p(X) = X
-
-    def roll(arr, rot):
-        return torch.roll(arr, -rot, dims=0) if rot else arr
+    # each distinct column is extended once a shard; the table is keyed by
+    # id and holds the column itself, so a live entry's id cannot be taken
+    # by another tensor
+    held: dict[int, tuple[torch.Tensor, int]] = {}
+    col_index = []
+    for key in keys:
+        col = coeff_of(key)
+        col_index.append(held.setdefault(id(col), (col, len(held)))[1])
+    coeffs = torch.stack([col for col, _ in held.values()])
 
     shards = []  # F_s = INTT(shard evals of h)
     for s in range(ratio):
         coset = zeta * pow(w_ext, s, R) % R
-        coset_pows = mont_powers(coset, n, dev)
-        # keyed by id, holding the column itself: a cached id can never be
-        # taken by another tensor while its entry lives
-        ext_cache: dict = {}
-
-        def ext(coeff_arr):
-            key = id(coeff_arr)
-            if key not in ext_cache:
-                ext_cache[key] = (coeff_arr,
-                                  ntt_fn(m_mul(coeff_arr, coset_pows), False))
-            return ext_cache[key][1]
-
-        l0_e = ext(l0_c)
-        ll_e = ext(ll_c)
-        lb_e = ext(lb_c)
-        active = m_sub(one_b, m_add(ll_e, lb_e))  # 1 - (l_last + l_blind)
-
-        acc = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
-
-        def fold(e):
-            nonlocal acc
-            acc = m_add(m_mul(acc, y_b), e)
-
-        for p in range(num_proofs):
-            def expr_ext(e: Expression):
-                return e.evaluate(
-                    constant=scalar,
-                    fixed=lambda q: roll(ext(apk.fixed_coeff[cs.fixed_queries[q][0]]),
-                                         cs.fixed_queries[q][1]),
-                    advice=lambda q: roll(ext(advice_coeff[p][cs.advice_queries[q][0]]),
-                                          cs.advice_queries[q][1]),
-                    instance=lambda q: roll(
-                        ext(instance_coeff[p][cs.instance_queries[q][0]]),
-                        cs.instance_queries[q][1]),
-                    challenge=lambda i: scalar(challenges[i]),
-                    neg=lambda a: m_sub(torch.zeros_like(a), a),
-                    add=m_add,
-                    mul=m_mul,
-                    scale=lambda a, sc: m_mul(a, scalar(sc)),
-                )
-
-            # gates
-            for _, polys in cs.gates:
-                for g in polys:
-                    fold(expr_ext(g))
-
-            # permutation expressions
-            sets_e = [ext(zc) for zc in perm_z_coeff[p]]
-            if sets_e:
-                z0 = sets_e[0]
-                fold(m_mul(l0_e, m_sub(one_b, z0)))
-                zl = sets_e[-1]
-                fold(m_mul(ll_e, m_sub(m_mul(zl, zl), zl)))
-                for s_idx in range(1, len(sets_e)):
-                    prev_rot = roll(sets_e[s_idx - 1], -(bf + 1))
-                    fold(m_mul(m_sub(sets_e[s_idx], prev_rot), l0_e))
-                omega_do = ext(x_poly_c)  # evaluations of the poly X
-                for chunk_idx0, chunk_start in enumerate(
-                        range(0, len(cs.permutation_columns), chunk_len)):
-                    chunk = cs.permutation_columns[chunk_start : chunk_start + chunk_len]
-                    zc_e = sets_e[chunk_idx0]
-                    left = roll(zc_e, 1)
-                    right = zc_e
-                    delta_pow = pow(FR_DELTA, chunk_idx0 * chunk_len, R)
-                    for j, col in enumerate(chunk):
-                        qidx = cs.get_any_query_index(col, 0)
-                        if col.kind == "advice":
-                            vp = ext(advice_coeff[p][cs.advice_queries[qidx][0]])
-                        elif col.kind == "fixed":
-                            vp = ext(apk.fixed_coeff[cs.fixed_queries[qidx][0]])
-                        else:
-                            vp = ext(instance_coeff[p][cs.instance_queries[qidx][0]])
-                        sigma_e = ext(apk.sigmas_coeff[chunk_start + j])
-                        left = m_mul(left, m_add(
-                            vp, m_add(m_mul(beta_b, sigma_e), gamma_b)))
-                        dx = m_mul(omega_do, scalar(beta * delta_pow % R))
-                        right = m_mul(right, m_add(vp, m_add(dx, gamma_b)))
-                        delta_pow = delta_pow * FR_DELTA % R
-                    fold(m_mul(m_sub(left, right), active))
-
-            # lookup expressions
-            for lk_idx, lk in enumerate(lookups_data[p]):
-                arg = cs.lookups[lk_idx]
-                zc_e = ext(lk["z_coeff"])
-                ac_e = ext(lk["a_coeff"])
-                sc_e = ext(lk["s_coeff"])
-                z_next = roll(zc_e, 1)
-                a_prev = roll(ac_e, -1)
-                input_e = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
-                for e in arg.input_expressions:
-                    input_e = m_add(m_mul(input_e, theta_b), expr_ext(e))
-                table_e = torch.zeros((n, WORDS), dtype=torch.int32, device=dev)
-                for e in arg.table_expressions:
-                    table_e = m_add(m_mul(table_e, theta_b), expr_ext(e))
-                fold(m_mul(l0_e, m_sub(one_b, zc_e)))
-                fold(m_mul(ll_e, m_sub(m_mul(zc_e, zc_e), zc_e)))
-                left = m_mul(z_next, m_mul(m_add(ac_e, beta_b), m_add(sc_e, gamma_b)))
-                right = m_mul(zc_e, m_mul(m_add(input_e, beta_b),
-                                          m_add(table_e, gamma_b)))
-                fold(m_mul(m_sub(left, right), active))
-                a_minus_s = m_sub(ac_e, sc_e)
-                fold(m_mul(l0_e, a_minus_s))
-                fold(m_mul(m_mul(a_minus_s, m_sub(ac_e, a_prev)), active))
-
+        ext = ntts(coeffs, False, coset=mont_powers(coset, n, dev))
+        acc = fo.run_program(prog, [ext[i] for i in col_index])
+        del ext
         # divide by the vanishing constant zeta^n w_ext^{sn} - 1
         vanish = (pow(zeta, n, R) * pow(w_ext, s * n, R) - 1) % R
-        shards.append(ntt_fn(m_mul(acc, scalar(pow(vanish, -1, R))), True))
+        shards.append(ntts([m_mul(acc, scalar(pow(vanish, -1, R)))], True)[0])
 
     # recombine shards into coefficient chunks:
     # F_s[m] = w_ext^{sm} sum_u d[m,u] phi^{su}, phi = w_ext^n,

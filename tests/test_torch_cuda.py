@@ -243,17 +243,42 @@ def test_padd_kernel_matches_twin(cuda):
                                                 for p, q in zip(a, b)]
 
 
-@pytest.mark.parametrize("half", [1, 8, 512])
-def test_ntt_butterfly_matches_twin(cuda, half):
-    x = _rand(fo.FR, (1 << 11,), 12, cuda)
-    tw = _rand(fo.FR, (half,), 13, cuda)
-    k, p = x.clone(), x.clone()
-    before = build.LAUNCHES["ntt_butterfly"]
-    pn.butterfly(k, tw, half)
-    assert build.LAUNCHES["ntt_butterfly"] == before + 1
-    pn.butterfly_plain(p, tw, half)
+@pytest.mark.parametrize("k,b,with_coset", [(4, 1, False), (11, 3, False),
+                                             (16, 8, True)])
+def test_ntt_butterfly_matches_twin(cuda, k, b, with_coset):
+    """The batched transform kernel (one launch a pass) against its twin,
+    forward and inverse, word for word: one pass of small tiles, two passes
+    of small tiles, and two passes of four groups a block at k = 16."""
+    x = _rand(fo.FR, (b, 1 << k), 12, cuda)
+    coset = _rand(fo.FR, (1 << k,), 13, cuda) if with_coset else None
+    for inverse in (False, True):
+        before = build.LAUNCHES["ntt_transform"]
+        got = pn.ntt_batch(x, k, inverse, coset=coset)
+        assert build.LAUNCHES["ntt_transform"] == before + len(pn.pass_bounds(k))
+        want = pn.ntt_batch_plain(x, k, inverse, coset=coset)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_field_program_matches_twin(cuda):
+    """The row-program kernel on the zkevm-shape (k = 7) quotient program
+    of two proofs over random columns, against its twin."""
+    from halo2_snark_aggregator_tpu_torch.protocol.plonk import ConstraintSystem
+    from halo2_snark_aggregator_tpu_torch.prover import quotient_program as qp
+
+    cs = ConstraintSystem()
+    ZkevmShapeCircuit(k=7, seed=3, n_groups=2, table_bits=6).configure(cs)
+    rng = np.random.default_rng(15)
+    ch = [int.from_bytes(rng.bytes(32), "little") % ff.R
+          for _ in range(cs.num_challenges + 4)]
+    prog, keys = qp.compile_quotient(cs, 2, ch[4:], *ch[:4])
+    cols = list(_rand(fo.FR, (len(keys), 1 << 7), 16, cuda).unbind(0))
+    before = build.LAUNCHES["field_program"]
+    got = fo.run_program(prog, cols)
+    assert build.LAUNCHES["field_program"] == before + 1
+    want = fo.run_program_plain(prog, cols)
     torch.cuda.synchronize()
-    assert torch.equal(k, p)
+    assert torch.equal(got, want)
 
 
 def test_ntt_scale_and_transform(cuda):
