@@ -5,12 +5,13 @@
 Phases (each prints one line; any failure raises and exits nonzero):
   1. device: the card's name, power limit and top SM clock; no CUDA -> exit 2;
   2. build: nvcc builds every kernel from halo2_snark_aggregator_tpu_torch/csrc
-     (one nvcc per source, in parallel), g++ the native host library; the
-     registers and spill bytes of the field, row-program, sponge-chain,
-     accumulate, reduce and transform kernels from ptxas;
-  3. setup + keygen: the K=16 SRS (fixed-base add tree) and the zkevm-shape
-     key built on the card, device commits, fingerprint checked; launch
-     counts read for that path;
+     (one nvcc per source, in parallel), g++ the native host library; each
+     kernel's registers and spill bytes from ptxas; the machine
+     instructions (cuobjdump) of one Montgomery product and of each kernel;
+     the card's IMAD and IMAD.WIDE.U32 rates, measured on probe chains;
+  3. setup + keygen: the K=16 SRS (one fixed-base launch, no padd launch)
+     and the zkevm-shape key built on the card, device commits, fingerprint
+     checked; launch counts read for that path;
   4. kernel vs plain twin, at the main paths' shapes, exact equality: field
      mul/add/sub (the verifier's widest tape level x 128 lanes and the
      prover's 2^16-element polynomials), pow (Fr inversions, Fq square
@@ -21,11 +22,16 @@ Phases (each prints one line; any failure raises and exits nonzero):
      built on the card against the numpy copy's, the row combine against
      the native MSM; max bucket load, max row load, rows, the plan's time),
      4d padd on 2^14 special pairs (identities, doubling, inverse) and on
-     every level of the SRS add tree (2^20 .. 2^16 pairs), 4e the batched
-     transform at k=16 (one vector forward and inverse; the quotient shard's
-     batch of columns with a coset factor) and the scale (forward == native
-     fr_ntt, inverse(forward) == input), 4f the row-program kernel on the
-     K=16 quotient program over random columns;
+     the first level (2^20 pairs) of a tree of adds over the K=16 SRS's
+     digit points, whose normalised sum must be the SRS of phase 3 word for
+     word; the fixed-base kernel over the same 2^16 tau powers and on
+     special scalars against its twin, timed beside the tree; 4e the
+     batched transform at k=16 (one vector forward and inverse; the
+     quotient shard's batch of columns with a coset factor, forward, and
+     inverse with the 1/n scale in its last pass; forward == native
+     fr_ntt, inverse(forward) == input; the inverse's time less the
+     forward's), 4f the row-program kernel on the K=16 quotient program
+     over random columns;
   5. parity: the batched verifier over the 4 committed proofs must give the
      host value-context oracle's (w_x, w_g) and pass;
   6. main verify path: batch 128 (4 proofs tiled 32x), one warm and REPS
@@ -40,11 +46,12 @@ Phases (each prints one line; any failure raises and exits nonzero):
 Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
-path; for the redesigned kernels and the field kernel, their registers and
-spills from ptxas; for the sponge, the whole chain's times; for the
-accumulate, the plan's time; for the transform, one vector's times beside
-the batch's; for the row program, its size), the nvidia-smi line, and the
-final JSON line
+path; their registers and spills from ptxas and machine instructions; for
+the sponge, the whole chain's times; for the accumulate, the plan's time;
+for the fixed-base sum, the padd tree's time; for the transform, one
+vector's times beside the batch's and the inverse's, and the inverse's
+extra time, which holds the 1/n epilogue; for the row
+program, its size), the nvidia-smi line, and the final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
 """
@@ -63,7 +70,7 @@ import torch
 
 SEED = 20261016
 REPS = 3
-PROFILE_TRIES = 5       # profiles of one kernel before its time counts as lost
+PROFILE_TRIES = 5       # profiles of one kernel at most
 PADD_PAIRS = 1 << 14    # special cases: identities, P + P, P + (-P)
 PLAIN_CHUNK = 1 << 18   # rows per call of a twin at the prover's sizes
 NTT_K = 16
@@ -78,6 +85,9 @@ MONT_MUL_IMAD = 2 * 64 + (8 + 2 * 64)
 FULL_ADD_MULS = 12              # RCB15 Algorithm 7
 MIXED_ADD_MULS = 11             # RCB15 Algorithm 8
 
+# every kernel of the port: its source and the TPU kernel it replaces (the
+# fixed-base sum carries the SRS's tree of curve_pallas adds; the transform's
+# last pass of an inverse also carries ntt_pallas `_scale_kernel`, :179)
 KERNEL_SOURCES = {
     "field": ("field.cu", "ops/field_pallas.py:106"),
     "field_program": ("field.cu", "ops/field_pallas.py:106"),
@@ -85,21 +95,25 @@ KERNEL_SOURCES = {
     "msm_accumulate": ("msm.cu", "ops/msm_pallas.py:252"),
     "msm_reduce": ("msm.cu", "ops/msm_pallas.py:285"),
     "curve_padd": ("curve.cu", "ops/curve_pallas.py:147"),
+    "fixed_base": ("curve.cu", "ops/curve_pallas.py:147"),
     "ntt_transform": ("ntt.cu", "ops/ntt_pallas.py:168"),
-    "ntt_scale": ("ntt.cu", "ops/ntt_pallas.py:179"),
 }
 PTXAS_SYMBOL = {"field": "field_kernel",
                 "field_program": "field_program_kernel",
                 "poseidon": "poseidon_chain_kernel",
                 "msm_accumulate": "accumulate_kernel",
                 "msm_reduce": "reduce_kernel",
+                "curve_padd": "padd_kernel",
+                "fixed_base": "fixed_base_kernel",
                 "ntt_transform": "ntt_pass_kernel"}
+# the kernels each path must launch (the batched padd is on none of them:
+# the SRS is one fixed-base launch)
 PATH_KERNELS = {
-    "setup_keygen": ("curve_padd", "field", "ntt_transform", "ntt_scale",
-                     "msm_accumulate", "msm_reduce"),
+    "setup_keygen": ("fixed_base", "field", "ntt_transform", "msm_accumulate",
+                     "msm_reduce"),
     "verify": ("field", "poseidon", "msm_accumulate", "msm_reduce"),
-    "prove": ("field", "field_program", "ntt_transform", "ntt_scale",
-              "msm_accumulate", "msm_reduce"),
+    "prove": ("field", "field_program", "ntt_transform", "msm_accumulate",
+              "msm_reduce"),
 }
 
 
@@ -125,48 +139,45 @@ def cuda_ms(fn, reps: int) -> float:
 def kernel_ms(fn, symbol: str, reps: int, launches: int = 1) -> float:
     """Device ms per call of `fn`, which launches the CUDA function `symbol`
     `launches` times, over `reps` runs after one warm run: torch.profiler's
-    device time, which the host's launch rate does not hold back, as the
-    mean of the recorded launches times `launches`. The card's tracer drops
-    a record now and then (more often late in a long run), so a profile
+    device time (CUDA activity only), which the host's launch rate does not
+    hold back, as the mean of the recorded launches times `launches`. Late
+    in a long run the card's tracer drops a few records a profile, so one
     with fewer than reps * launches records is taken again, up to
-    PROFILE_TRIES times, each after the allocator's cached blocks are
-    returned to the driver; if none is whole, the fullest counts and a line
-    says so."""
+    PROFILE_TRIES profiles; the first whole one counts, else the fullest,
+    and a line gives the records of each try."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     pat = re.compile(r"(^|\s)h2t::" + symbol + r"[<(]")  # csrc's namespace
     want = reps * launches
-    best = (0, 0.0)
+    best, tries = (0, 0.0), []
     for _ in range(PROFILE_TRIES):
         torch.cuda.empty_cache()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         total_us, count = 0.0, 0
         for ev in prof.key_averages():
             if pat.search(ev.key):
-                total_us += (getattr(ev, "self_device_time_total", 0)
-                             or getattr(ev, "self_cuda_time_total", 0))
+                total_us += ev.self_device_time_total
                 count += ev.count
         if count > want:
             raise AssertionError(f"{count} launches of {symbol} in {reps} "
                                  f"calls, not {want}")
+        tries.append(count)
         if total_us > 0 and count > best[0]:
             best = (count, total_us)
-        if best[0] == want:
+        if count == want:
             break
     count, total_us = best
     if not count:
         raise AssertionError(f"torch.profiler saw no device time for {symbol} "
                              f"in {PROFILE_TRIES} profiles")
-    if count < want:
-        phase("profile", f"{symbol}: torch.profiler recorded {count} of "
-              f"{want} launches in the fullest of {PROFILE_TRIES} profiles; "
-              f"the time is their mean x {launches}")
+    if len(tries) > 1:
+        phase("profile", f"{symbol}: records of {want} in each try {tries}; "
+              f"the time is the mean of {count} x {launches}")
     return total_us / 1e3 / count * launches
 
 
@@ -498,6 +509,12 @@ def check_msm(dev, rng, params, bound, results):
 
 
 def check_padd(dev, rng, params, bound, results):
+    """The batched complete add on special pairs, then as a tree of adds
+    over the K=16 SRS's digit points (the first level, 2^20 pairs, against
+    the twin and timed), whose normalised sum must be phase 3's SRS word
+    for word. Returns (scalars, table, normalised tree sum, the
+    tree's device ms and events ms) for the fixed-base check."""
+    from halo2_snark_aggregator_tpu_torch import device as dv
     from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import curve as cv
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
@@ -528,46 +545,105 @@ def check_padd(dev, rng, params, bound, results):
     if cv.to_affine_ints(out_k[:8].unbind(1)) != [ff.g1_add(p, q)
                                                   for p, q in zip(ha, hb)]:
         raise AssertionError("padd special cases differ from the host add")
-    # the SRS add tree as setup runs it: 2^16 scalars' 32 digit points from
-    # the generator's table, summed in 5 padd levels; each level's kernel
-    # output against the twin on the same inputs, the first level timed
+    # the tree of adds over the K=16 SRS's digit points that setup ran
+    # before the fixed-base kernel: its first level (2^20 pairs) against the
+    # twin and timed, its normalised sum against phase 3's SRS
     n = params.n
+    sw = fo.to_tensor(fo.ints_to_words(srs.tau_powers(NTT_K)), dev)
     table = srs.g1_table(dev)
-    pts = srs.digit_points(fo.ints_to_words(rand_ints(ff.R, n, rng)), table)
-    levels, t = [], None
-    while pts.shape[0] > 1:
-        half = pts.shape[0] // 2
-        lo = pts[:half].reshape(-1, 3, 8)
-        hi = pts[half:].reshape(-1, 3, 8)
-        out_k = cv.padd(lo, hi)
-        out_p, plain_ms = once_ms(lambda: torch.cat([
-            cv.padd_plain(lo[i : i + PLAIN_CHUNK], hi[i : i + PLAIN_CHUNK])
-            for i in range(0, lo.shape[0], PLAIN_CHUNK)]))
-        err = max(err, max_abs_err(out_k, out_p))
-        if t is None:
-            t = dict(timed(lambda: cv.padd(lo, hi), "padd_kernel", 10),
-                     plain_ms=plain_ms)
-            m = lo.shape[0]
-        levels.append(lo.shape[0])
-        pts = out_k.reshape(half, n, 3, 8)
+    pts = cv.digit_points(sw, table)
+    half = pts.shape[0] // 2
+    lo = pts[:half].reshape(-1, 3, 8)
+    hi = pts[half:].reshape(-1, 3, 8)
+    out_p, plain_ms = once_ms(lambda: torch.cat([
+        cv.padd_plain(lo[i : i + PLAIN_CHUNK], hi[i : i + PLAIN_CHUNK])
+        for i in range(0, lo.shape[0], PLAIN_CHUNK)]))
+    err = max(err, max_abs_err(cv.padd(lo, hi), out_p))
     if err:
         raise AssertionError(f"padd kernel differs from its twin: {err}")
+    t = dict(timed(lambda: cv.padd(lo, hi), "padd_kernel", 10), plain_ms=plain_ms)
+    m = lo.shape[0]
+    tree = cv.normalize_affine(cv.padd_tree(pts))
+    if not torch.equal(tree, params.g_dev):
+        raise AssertionError("the SRS made by the fixed-base kernel differs "
+                             "from the padd tree's table")
+
+    def run_tree():
+        return cv.padd_tree(cv.digit_points(sw, table))
+
+    tree_ms = dv.profile_device(run_tree, dev)["device_busy_s"] * 1e3
+    tree_launch_ms = cuda_ms(run_tree, 3)
     phase("4d padd", f"exact over {PADD_PAIRS} pairs (identity either side and "
-          f"both, P + P, P + (-P), projective inputs) and the SRS tree's "
-          f"levels {levels} pairs; first level {t['ms']:.4f} ms device, "
-          f"{t['launch_ms']:.4f} ms launch (plain {t['plain_ms']:.1f} ms)")
+          f"both, P + P, P + (-P), projective inputs) and the first level of "
+          f"the tree of adds over the K={NTT_K} SRS's digit points ({m} "
+          f"pairs), whose normalised sum == phase 3's SRS word for word; "
+          f"first level "
+          f"{t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms launch (plain "
+          f"{t['plain_ms']:.1f} ms); the whole tree with its gather "
+          f"{tree_ms:.4f} ms device, {tree_launch_ms:.4f} ms events")
     results["curve_padd"] = dict(max_abs_err=err, **t,
-                                 shape=f"{m} pairs (SRS tree level 1 of 5)",
+                                 shape=f"{m} pairs (the first of 5 levels of "
+                                       f"a tree over 2^{NTT_K} scalars' digit "
+                                       f"points)",
                                  bound=bound(m * 288, m * FULL_ADD_MULS * MONT_MUL_IMAD))
+    return sw, table, tree, (tree_ms, tree_launch_ms)
+
+
+def check_fixed_base(dev, sw, table, tree, tree_times, bound, results):
+    """The fixed-base kernel over the K=16 tau powers against its twin (on
+    the card) word for word, its normalised sum against the padd tree's;
+    on special scalars against the twin; timed beside the tree."""
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
+    from halo2_snark_aggregator_tpu_torch.ops import curve as cv
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    n = sw.shape[0]
+    got = cv.fixed_base(sw, table)
+    want, plain_ms = once_ms(lambda: cv.fixed_base_plain(sw, table))
+    err = max_abs_err(got, want)
+    if not torch.equal(cv.normalize_affine(got), tree):
+        raise AssertionError("fixed-base sums differ from the padd tree's")
+    special = fo.to_tensor(fo.ints_to_words(
+        [0, 1, ff.R - 1, (0x01 << 248) | (0x0203 << 120) | 0x04,
+         (1 << 256) - 1]), dev)
+    err = max(err, max_abs_err(cv.fixed_base(special, table),
+                               cv.fixed_base_plain(special, table)))
+    if err:
+        raise AssertionError(f"fixed-base kernel differs from its twin: {err}")
+    t = timed(lambda: cv.fixed_base(sw, table), "fixed_base_kernel", 10)
+    # the work this run's scalars need: one mixed add for each nonzero digit
+    # past a scalar's first
+    shifts = torch.arange(0, 32, cv.WINDOW, device=dev)
+    nonzero = ((((sw.long() & 0xFFFFFFFF)[..., None] >> shifts) & 0xFF) != 0
+               ).reshape(n, -1).sum(1)
+    adds = int((nonzero - 1).clamp(min=0).sum().item())
+    tree_ms, tree_launch_ms = tree_times
+    phase("4d fixed_base", f"exact against its twin over the {n} K={NTT_K} tau "
+          f"powers (normalised == the padd tree's) and on 5 special scalars "
+          f"(0, 1, r - 1, zero digits inside, all digits 0xff); {adds} mixed "
+          f"adds; one launch {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms "
+          f"events (plain {plain_ms:.1f} ms); the padd tree with its gather "
+          f"{tree_ms:.4f} ms device, {tree_launch_ms:.4f} ms events")
+    results["fixed_base"] = dict(
+        max_abs_err=err, plain_ms=plain_ms, **t, tree_ms=tree_ms,
+        tree_launch_ms=tree_launch_ms,
+        shape=f"{n} scalars (the K=16 SRS's tau powers), {adds} mixed adds",
+        bound=bound(n * 32 + table.numel() * 4 + n * 96,
+                    adds * MIXED_ADD_MULS * MONT_MUL_IMAD))
 
 
 def check_ntt(dev, rng, bound, results, batch: int):
-    """The transform kernel at k = 16: one vector, and a batch of `batch`
-    columns with a coset factor (the quotient shard's extension), each
-    against its twin word for word (the batch twin a few columns at a
-    time); forward == native fr_ntt; inverse(forward) == input; the scale
-    kernel against its twin."""
+    """The transform kernel at k = 16: one vector, forward and inverse, and
+    a batch of `batch` columns forward with a coset factor (the quotient
+    shard's extension) and inverse, each against its twin word for word
+    (the batch twin a few columns at a time); forward == native fr_ntt;
+    inverse(forward) == input. An inverse makes one launch a pass and no
+    other (its last pass applies 1/n). Timed: each forward and inverse, the
+    batch's forward also without the coset factor; the inverse's device
+    time less that forward's reads the 1/n epilogue together with whatever
+    the pass's stalls hide of it."""
     from halo2_snark_aggregator_tpu_torch import native
+    from halo2_snark_aggregator_tpu_torch.kernels import build
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
     from halo2_snark_aggregator_tpu_torch.prover.domain import omega_for_k
@@ -587,38 +663,56 @@ def check_ntt(dev, rng, bound, results, batch: int):
         pn.ntt_batch_plain(xb[i : i + 8], k, coset=coset)
         for i in range(0, batch, 8)]))
     errs.append(max_abs_err(got, want))
+    before = dict(build.LAUNCHES)
+    got = pn.ntt_batch(xb, k, inverse=True)
+    inv_launches = {kn: c - before[kn] for kn, c in build.LAUNCHES.items()
+                    if c != before[kn]}
+    passes = len(pn.pass_bounds(k))
+    if inv_launches != {"ntt_transform": passes}:
+        raise AssertionError(f"an inverse at k={k} launched {inv_launches}, "
+                             f"want {passes} transform passes and nothing else")
+    want, inv_plain_ms = once_ms(lambda: torch.cat([
+        pn.ntt_batch_plain(xb[i : i + 8], k, inverse=True)
+        for i in range(0, batch, 8)]))
+    errs.append(max_abs_err(got, want))
     fwd = pn.ntt_auto(x[0], k)
     if fo.from_mont_words(fo.FR, fwd) != native.fr_ntt(vals, omega_for_k(k)):
         raise AssertionError("forward NTT differs from the native fr_ntt")
     if not torch.equal(pn.ntt_auto(fwd, k, inverse=True), x[0]):
         raise AssertionError("inverse(forward(x)) != x")
-    _rev, _tw, n_inv = pn.device_plan(k, True, dev)
-    xs = x[0].clone()
-    err_s = max_abs_err(pn.scale(xs, n_inv), pn.scale_plain(xs, n_inv))
     err = max(errs)
-    if err or err_s:
-        raise AssertionError(f"ntt kernels differ from their twins: {err}, {err_s}")
-    passes = len(pn.pass_bounds(k))
-    t1 = dict(ms=kernel_ms(lambda: pn.ntt_batch(x, k), "ntt_pass_kernel", 10,
-                           passes),
-              launch_ms=cuda_ms(lambda: pn.ntt_batch(x, k), 10))
-    tb = dict(ms=kernel_ms(lambda: pn.ntt_batch(xb, k, coset=coset),
-                           "ntt_pass_kernel", 5, passes),
-              launch_ms=cuda_ms(lambda: pn.ntt_batch(xb, k, coset=coset), 5))
+    if err:
+        raise AssertionError(f"ntt kernel differs from its twin: {err}")
+
+    def both(fn, reps):
+        return dict(ms=kernel_ms(fn, "ntt_pass_kernel", reps, passes),
+                    launch_ms=cuda_ms(fn, reps))
+
+    t1 = both(lambda: pn.ntt_batch(x, k), 10)
+    t1i = both(lambda: pn.ntt_batch(x, k, inverse=True), 10)
+    tb = both(lambda: pn.ntt_batch(xb, k, coset=coset), 5)
+    tbf = both(lambda: pn.ntt_batch(xb, k), 5)
+    tbi = both(lambda: pn.ntt_batch(xb, k, inverse=True), 5)
     _out, t1_plain = once_ms(lambda: pn.ntt_batch_plain(x, k))
-    ts = (timed(lambda: pn.scale(xs, n_inv, out=xs), "ntt_scale_kernel", 20),
-          cuda_ms(lambda: pn.scale_plain(xs, n_inv), 3))
-    t_intt = cuda_ms(lambda: pn.ntt_batch(x, k, inverse=True), 10)
+    _rev, _tw, n_inv = pn.device_plan(k, True, dev)
+    _out, scale_plain_ms = once_ms(lambda: pn.scale_plain(xb, n_inv))
+    scale_ms = tbi["ms"] - tbf["ms"]
     phase("4e ntt", f"k={k}: the transform ({passes} launches, passes "
           f"{pn.pass_bounds(k)}) exact against its twin at b=1 forward and "
-          f"inverse and at b={batch} with a coset factor; forward == native "
-          f"fr_ntt, inverse(forward) == input; b=1 {t1['ms']:.4f} ms device, "
-          f"{t1['launch_ms']:.4f} ms events (plain {t1_plain:.1f} ms); "
-          f"b={batch} {tb['ms']:.4f} ms device ({tb['ms'] / batch:.4f} a "
-          f"column), {tb['launch_ms']:.4f} ms events (plain, 8 columns a "
-          f"call, {batch_plain_ms:.1f} ms); INTT b=1 {t_intt:.4f} "
-          f"ms events; scale {ts[0]['ms']:.4f} ms device, "
-          f"{ts[0]['launch_ms']:.4f} ms launch (plain {ts[1]:.2f} ms)")
+          f"inverse and at b={batch} forward with a coset factor and inverse; "
+          f"forward == native fr_ntt, inverse(forward) == input; an inverse "
+          f"launched {inv_launches}; device ms (events ms): b=1 forward "
+          f"{t1['ms']:.4f} ({t1['launch_ms']:.4f}), inverse {t1i['ms']:.4f} "
+          f"({t1i['launch_ms']:.4f}) (plain {t1_plain:.1f} ms); b={batch} "
+          f"forward with the coset {tb['ms']:.4f} ({tb['ms'] / batch:.4f} a "
+          f"column; {tb['launch_ms']:.4f}), without {tbf['ms']:.4f} "
+          f"({tbf['launch_ms']:.4f}), inverse {tbi['ms']:.4f} "
+          f"({tbi['launch_ms']:.4f}) (plain, 8 columns a call, "
+          f"{batch_plain_ms:.1f} / {inv_plain_ms:.1f} ms); inverse less "
+          f"forward (the 1/n epilogue of the last pass, not separable from "
+          f"the pass): {scale_ms:.4f} ms for {batch} columns, "
+          f"{t1i['ms'] - t1['ms']:.4f} ms for one (plain scale "
+          f"{scale_plain_ms:.2f} ms)")
     tw_bytes = (n - 1) * 32
     results["ntt_transform"] = dict(
         max_abs_err=err, plain_ms=batch_plain_ms, **tb,
@@ -628,10 +722,13 @@ def check_ntt(dev, rng, bound, results, batch: int):
                     batch * (n // 2 * k + n) * MONT_MUL_IMAD),
         b1_ms=t1["ms"], b1_launch_ms=t1["launch_ms"], b1_plain_ms=t1_plain,
         b1_bound_ms=bound(n * 64 + tw_bytes, n // 2 * k * MONT_MUL_IMAD)[0],
-        intt_b1_launch_ms=t_intt)
-    results["ntt_scale"] = dict(max_abs_err=err_s, plain_ms=ts[1], **ts[0],
-                                shape=f"n=2^{k}",
-                                bound=bound(n * 64, n * MONT_MUL_IMAD))
+        b1_inverse_ms=t1i["ms"], b1_inverse_launch_ms=t1i["launch_ms"],
+        forward_ms=tbf["ms"], inverse_ms=tbi["ms"],
+        inverse_launch_ms=tbi["launch_ms"], inverse_plain_ms=inv_plain_ms,
+        inverse_launches=inv_launches["ntt_transform"],
+        scale_replaces="halo2_snark_aggregator_tpu/ops/ntt_pallas.py:179",
+        scale_ms=scale_ms, scale_plain_ms=scale_plain_ms,
+        scale_bound_ms=bound(0, batch * n * MONT_MUL_IMAD)[0])
 
 
 def check_program(dev, rng, vk, bound, results):
@@ -735,14 +832,27 @@ def main() -> int:
     t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the native host library did not build")
+    t_native = time.perf_counter() - t0
     usage = build.ptxas_usage(Path(build.BUILD_INFO["ptxas_log"]).read_text())
     ptxas = {k: usage[k] for k in PTXAS_SYMBOL.values()}
+    sass = build.sass_counts()
     phase("2 build", f"nvcc {t_nvcc:.1f} s (sm_90a, one nvcc per source, "
-          f"built={build.BUILD_INFO['built']}); g++ native "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: " + ", ".join(
+          f"built={build.BUILD_INFO['built']}); g++ native {t_native:.1f} s; "
+          f"one Montgomery product {sass['mont_mul']} SASS instructions "
+          f"({sass['mont_mul_ops']}); ptxas, SASS instructions: " + ", ".join(
               f"{k} {u['registers']} registers, {u['stack']} B stack, "
-              f"{u['spill_stores']}/{u['spill_loads']} B spill stores/loads"
+              f"{u['spill_stores']}/{u['spill_loads']} B spill stores/loads, "
+              f"{sass['kernels'].get(k)} instructions"
               for k, u in ptxas.items()))
+
+    rates = build.imad_rates()
+    phase("2 rates", "multiply-adds a clock an SM at the max SM clock (8 "
+          "chains a thread, 8 blocks of 256 an SM; the op's count in the "
+          "probe's SASS): " + ", ".join(
+              f"{op} {rates[op]['per_ns_per_sm'] * 1e3 / clock:.2f} "
+              f"({rates[op]['ms']:.3f} ms a launch, {rates[op]['in_kernel']} in "
+              f"the kernel)" for op in ("IMAD", "IMAD.WIDE.U32"))
+          + f"; wide over narrow {rates['wide_over_narrow']:.3f}")
 
     paths: dict[str, dict] = {}
 
@@ -755,6 +865,9 @@ def main() -> int:
     build.reset_launches()
     params, vk, apk, timings = fixtures.setup_k16(dev, "device")
     read_path("setup_keygen")
+    if paths["setup_keygen"]["fixed_base"] != 1 or paths["setup_keygen"]["curve_padd"]:
+        raise AssertionError("the SRS took more than one fixed-base launch "
+                             "or a padd launch")
     phase("3 setup+keygen", f"K=16 SRS and zkevm-shape key on the card, vk "
           f"fingerprint {fixtures.K16_FINGERPRINT}; setup "
           f"{timings['setup_s']:.1f} s, keygen {timings['keygen_s']:.1f} s "
@@ -773,7 +886,8 @@ def main() -> int:
     check_field(dev, rng, bv, bound, results)
     check_poseidon(dev, rng, bv, bound, results)
     check_msm(dev, rng, params, bound, results)
-    check_padd(dev, rng, params, bound, results)
+    check_fixed_base(dev, *check_padd(dev, rng, params, bound, results),
+                     bound, results)
     ext_cols = len(quotient_program.compile_quotient(
         vk.cs, 1, [0] * vk.cs.num_challenges, 0, 0, 0, 0)[1])
     check_ntt(dev, rng, bound, results, ext_cols)
@@ -870,12 +984,19 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": r["shape"],
             **{k: r[k] for k in ("chain_calls", "chain_ms", "chain_launch_ms",
-                                 "plan_ms", "plan_device_ms", "b1_ms",
-                                 "b1_launch_ms", "b1_plain_ms", "b1_bound_ms",
-                                 "intt_b1_launch_ms", "instructions",
-                                 "products", "slots", "columns") if k in r},
-            **({"ptxas": ptxas[PTXAS_SYMBOL[kname]]}
-               if kname in PTXAS_SYMBOL else {})})
+                                 "plan_ms", "plan_device_ms",
+                                 "tree_ms", "tree_launch_ms",
+                                 "b1_ms", "b1_launch_ms", "b1_plain_ms",
+                                 "b1_bound_ms", "b1_inverse_ms",
+                                 "b1_inverse_launch_ms", "forward_ms",
+                                 "inverse_ms", "inverse_launch_ms",
+                                 "inverse_plain_ms", "inverse_launches",
+                                 "scale_replaces", "scale_ms",
+                                 "scale_plain_ms", "scale_bound_ms",
+                                 "instructions", "products", "slots",
+                                 "columns") if k in r},
+            "ptxas": ptxas[PTXAS_SYMBOL[kname]],
+            "sass_instructions": sass["kernels"].get(PTXAS_SYMBOL[kname])})
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -46,15 +46,6 @@ namespace h2t {
 
 constexpr int kAccumThreads = 128;
 
-__device__ __forceinline__ Fe fe_ldg(const uint32_t* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4 lo = __ldg(s), hi = __ldg(s + 1);
-  Fe r;
-  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
-  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
-  return r;
-}
-
 // acc[r * B + b] = sum of table[order[weights[r], starts[r, b] + t]] for
 // t < counts[r, b], in order of t
 __global__ void __launch_bounds__(kAccumThreads)

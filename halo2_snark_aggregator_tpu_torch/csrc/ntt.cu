@@ -1,11 +1,13 @@
 // Radix-2 NTT over BN254 Fr, batched: one launch runs a pass of several
-// butterfly stages on tiles in shared memory; and the inverse's 1/n scale.
+// butterfly stages on tiles in shared memory; the inverse's 1/n scale is
+// the last pass's epilogue.
 //
 // Replaces: halo2_snark_aggregator_tpu/ops/ntt_pallas.py `_butterfly_kernel`
 // (lo = u + v * tw, hi = u - v * tw over a limb-major (16, n) block), run by
 // `_ntt_fused` over all k stages as one program, and `_scale_kernel` (x * n^-1
-// by a Montgomery constant). The port keeps the element-major (n, 8) word
-// layout of every other kernel.
+// by a Montgomery constant), which `_ntt_fused` runs in the same program.
+// The port keeps the element-major (n, 8) word layout of every other
+// kernel.
 //
 // Bound on the card: integer multiply-adds. A transform of 2^k points is
 // k 2^(k-1) butterflies of one Montgomery product (~264 32-bit IMADs) each:
@@ -43,7 +45,12 @@
 //    before it writes any, and no two blocks share a row.
 //  * Up to 256 threads a block loop over the tile's E / 2 butterflies; one
 //    __syncthreads a stage.
-// The scale kernel is one thread per element, out may alias x.
+//  * The last pass of an inverse transform multiplies each element by the
+//    constant n^-1 as it stores the tile: one Montgomery product an element
+//    where a separate scale launch read and wrote every element once more.
+//    The epilogue adds n products to the transform's k n / 2 (12.5 % at
+//    k = 16); folding n^-1 into the last stage's twiddles (lo = u c + v (w
+//    c), hi = u c - v (w c)) would save half of them.
 #include "field.cuh"
 
 namespace h2t {
@@ -70,7 +77,7 @@ __device__ __forceinline__ Fe tile_read(const uint32_t* sm, int E, int j) {
 __global__ void __launch_bounds__(kNttThreads)
 ntt_pass_kernel(const uint32_t* x, uint32_t* out, const uint32_t* tw,
                 const uint32_t* coset, int k, int s0, int s1, int lg,
-                int bitrev) {
+                int bitrev, Fe scale, int scaled) {
   extern __shared__ uint32_t sm[];
   const int m = s1 - s0;
   const int P = 1 << m, G = 1 << lg, E = P << lg;
@@ -124,15 +131,10 @@ ntt_pass_kernel(const uint32_t* x, uint32_t* out, const uint32_t* tw,
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     int j;
     int64_t row = locate(e, j);
-    fe_store(out + row * 8, tile_read(sm, E, j));
+    Fe v = tile_read(sm, E, j);
+    if (scaled) v = mont_mul<kFr>(v, scale);
+    fe_store(out + row * 8, v);
   }
-}
-
-__global__ void __launch_bounds__(128)
-ntt_scale_kernel(const uint32_t* x, uint32_t* out, Fe c, int64_t n) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  fe_store(out + i * 8, mont_mul<kFr>(fe_load(x + i * 8), c));
 }
 
 }  // namespace h2t
@@ -157,11 +159,13 @@ static cudaError_t sm_count(int64_t* sms) {
 // Stages [s0, s1) of b transforms of 2^k points: x, out (b, 2^k, 8)
 // Montgomery Fr words; tw the (2^k - 1, 8) twiddle table of ops/ntt._plan;
 // with bitrev, row i reads x[brev_k(i)] (times coset[brev_k(i)] when coset
-// is not null) and out must not alias x; without it out may alias x.
-// 1 <= s1 - s0 <= 10, s1 <= k <= 27.
+// is not null) and out must not alias x; without it out may alias x. scale:
+// null, or a host pointer to 8 canonical words (the Montgomery form of
+// n^-1 for an inverse's last pass) by which each stored element is
+// multiplied. 1 <= s1 - s0 <= 10, s1 <= k <= 27.
 extern "C" int h2t_ntt_pass(const void* x, void* out, const void* tw,
-                            const void* coset, int64_t b, int k, int s0,
-                            int s1, int bitrev, void* stream) {
+                            const void* coset, const void* scale, int64_t b,
+                            int k, int s0, int s1, int bitrev, void* stream) {
   using namespace h2t;
   const int m = s1 - s0;
   if (m < 1 || m > 10 || s0 < 0 || s1 > k || k > 27 || b < 0 || b > 65535)
@@ -182,24 +186,12 @@ extern "C" int h2t_ntt_pass(const void* x, void* out, const void* tw,
   const int threads = E / 2 < kNttThreads ? E / 2 : kNttThreads;
   dim3 grid((unsigned)(1LL << (k - m - lg)), (unsigned)b);
   size_t smem = (size_t)E * 8 * sizeof(uint32_t);
+  Fe c = {};
+  if (scale)
+    for (int i = 0; i < 8; i++) c.w[i] = static_cast<const uint32_t*>(scale)[i];
   ntt_pass_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(coset),
-      k, s0, s1, lg, bitrev);
-  return (int)cudaGetLastError();
-}
-
-// out[i] = x[i] * c * 2^-256 mod r; c is a host pointer to 8 canonical
-// words (the Montgomery form of n^-1); out may alias x.
-extern "C" int h2t_ntt_scale(const void* x, void* out, const void* c,
-                             int64_t n, void* stream) {
-  if (n == 0) return 0;
-  h2t::Fe cw;
-  for (int i = 0; i < 8; i++) cw.w[i] = static_cast<const uint32_t*>(c)[i];
-  const int threads = 128;
-  dim3 grid((unsigned)((n + threads - 1) / threads));
-  h2t::ntt_scale_kernel<<<grid, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), cw, n);
+      k, s0, s1, lg, bitrev, c, scale != nullptr);
   return (int)cudaGetLastError();
 }

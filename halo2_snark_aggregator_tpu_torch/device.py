@@ -41,8 +41,10 @@ def synchronize(device: torch.device) -> None:
 
 def profile_device(fn, device: torch.device) -> dict:
     """Run `fn` once under torch.profiler: the wall time, the device busy
-    time (the sum of the device events' self times) and its share, and the
-    12 kernels with the most device time."""
+    time (the sum of the device events' times: kernels, copies, fills) and
+    its share, and the 12 kernels with the most device time. Only events on
+    the device count: a torch op's host event also carries the device time
+    of the kernels it launched, which would count them twice."""
     from torch.profiler import ProfilerActivity, profile
 
     synchronize(device)
@@ -53,6 +55,8 @@ def profile_device(fn, device: torch.device) -> dict:
         wall = time.perf_counter() - t0
     by_kernel = {}
     for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            continue
         dt = getattr(ev, "self_device_time_total", 0) or 0
         if dt > 0:
             by_kernel[ev.key] = (ev.count, dt / 1e6)

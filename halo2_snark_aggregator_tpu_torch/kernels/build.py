@@ -16,6 +16,17 @@ Each build keeps nvcc's `-Xptxas -v` report beside the library;
     python -m halo2_snark_aggregator_tpu_torch.kernels.build [PTXAS_LOG]
 
 prints them as JSON (for the given log, or after building the library).
+`sass_counts` reads the machine code (cuobjdump): the instructions of one
+Montgomery product and of each kernel of the library;
+
+    python -m halo2_snark_aggregator_tpu_torch.kernels.build --sass [CSRC [LIB]]
+
+prints them as JSON (the product probe built against another source tree's
+field.cuh, and the kernels of another built library, when given).
+`imad_rates` measures the card's rate of the two multiply-adds a product
+issues, 32-bit IMAD and IMAD.WIDE.U32, on chains of each alone:
+
+    python -m halo2_snark_aggregator_tpu_torch.kernels.build --rates
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("field", "field_program", "poseidon", "msm_accumulate",
-           "msm_reduce", "curve_padd", "ntt_transform", "ntt_scale")
+           "msm_reduce", "curve_padd", "fixed_base", "ntt_transform")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}
 
@@ -55,8 +66,8 @@ _SIGNATURES = {
     "h2t_msm_accumulate": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     "h2t_msm_reduce": [_P, _I64, _I64, _I32, _I32, _P, _P],
     "h2t_curve_padd": [_P, _P, _P, _I64, _P],
-    "h2t_ntt_pass": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
-    "h2t_ntt_scale": [_P, _P, _P, _I64, _P],
+    "h2t_fixed_base": [_P, _P, _P, _I64, _P],
+    "h2t_ntt_pass": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
 }
 
 
@@ -183,6 +194,222 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# One Montgomery product in isolation: the probe's instructions less those
+# of a twin that XORs the same operands, plus the twin's 8 XORs.
+_SASS_PROBE = r"""
+#include "field.cuh"
+namespace h2t {
+__global__ void probe_mont_mul(const uint32_t* a, const uint32_t* b,
+                               uint32_t* out) {
+  const int i = threadIdx.x;
+  fe_store(out + i * 8, mont_mul<kFq>(fe_load(a + i * 8), fe_load(b + i * 8)));
+}
+__global__ void probe_xor(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  const int i = threadIdx.x;
+  Fe x = fe_load(a + i * 8), y = fe_load(b + i * 8);
+  for (int w = 0; w < 8; w++) x.w[w] ^= y.w[w];
+  fe_store(out + i * 8, x);
+}
+}  // namespace h2t
+"""
+_SASS_FUNC = re.compile(r"Function : (\S+)")
+_SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def _tool(name: str) -> str:
+    found = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    if not os.path.exists(found):
+        raise RuntimeError(f"{name} not found")
+    return found
+
+
+def sass_opcodes(path: Path, full: bool = False) -> dict:
+    """{kernel: {opcode: count}} of a cubin or shared library."""
+    return parse_sass(subprocess.run(
+        [_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+        text=True, check=True).stdout, full)
+
+
+def parse_sass(dump: str, full: bool = False) -> dict:
+    """{kernel: {opcode: count}} from `cuobjdump -sass` text, NOPs left out;
+    a kernel is named as in `ptxas_usage`, template instances summed. An
+    opcode is its base name (IMAD for IMAD.WIDE.U32) unless `full`."""
+    out: dict = {}
+    cur = None
+    for line in dump.splitlines():
+        if m := _SASS_FUNC.search(line):
+            n = re.match(r"_ZN3h2t(\d+)(\w+)", m.group(1))
+            cur = out.setdefault(n.group(2)[: int(n.group(1))] if n
+                                 else m.group(1), {})
+        elif cur is not None and (m := _SASS_INSN.search(line)):
+            op = m.group(1) if full else m.group(1).split(".")[0]
+            if not op.startswith("NOP"):
+                cur[op] = cur.get(op, 0) + 1
+    return out
+
+
+def sass_counts(csrc: Path = CSRC, lib: Path | None = None) -> dict:
+    """{"mont_mul": instructions of one Montgomery product, "mont_mul_ops":
+    its opcodes, "kernels": each kernel's instructions}. The product probe
+    is built against `csrc`'s field.cuh; the kernels are those of the
+    library `lib` (by default this tree's, built if need be)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"sass_probe{os.getpid()}.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(_SASS_PROBE)
+    try:
+        subprocess.run([_nvcc(), "-cubin", "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-I", str(Path(csrc).resolve()), "-o", str(cubin),
+                        str(src)], capture_output=True, text=True, check=True)
+        probe = sass_opcodes(cubin)
+    finally:
+        src.unlink(missing_ok=True)
+        cubin.unlink(missing_ok=True)
+    mul, xor = probe["probe_mont_mul"], probe["probe_xor"]
+    ops = {k: mul.get(k, 0) - xor.get(k, 0) for k in set(mul) | set(xor)}
+    ops["LOP3"] = ops.get("LOP3", 0) + 8
+    if lib is None:
+        library()
+        lib = Path(BUILD_INFO["path"])
+    kernels = sass_opcodes(Path(lib))
+    return {"mont_mul": sum(ops.values()),
+            "mont_mul_ops": {k: v for k, v in sorted(ops.items()) if v},
+            "kernels": {k: sum(v.values()) for k, v in sorted(kernels.items())}}
+
+
+# The multiply-add rates: every thread runs 8 independent chains of one
+# multiply-add, mad.lo.u32 (IMAD) or mad.wide.u32 (IMAD.WIDE.U32, the
+# instruction ptxas makes of a product's mad.lo.cc / madc.hi.cc pair), 128
+# a loop trip, 8 blocks of 256 threads an SM; timed by CUDA events. A
+# reading counts only if the kernel's SASS holds the 128 (ptxas turned a
+# chain with a fixed multiplicand into one multiply and 64-bit adds).
+_RATE_PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace h2t {
+template <bool kWide>
+__device__ __forceinline__ void rate_probe(uint32_t* out, uint32_t m,
+                                           int iters) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t x[8], y[8];
+  uint64_t w[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    x[j] = t * 8 + j;
+    y[j] = t ^ j;
+    w[j] = y[j];
+  }
+#pragma unroll 1
+  for (int i = 0; i < iters; i++) {
+#pragma unroll
+    for (int u = 0; u < 16; u++) {
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        // each step's multiplicand is the last step's result, so no
+        // compiler can fold the chain into fewer multiplies
+        if (kWide)
+          asm("{\n\t.reg .u32 lo, hi;\n\tmov.b64 {lo, hi}, %0;\n\t"
+              "mad.wide.u32 %0, lo, %1, %0;\n\t}"
+              : "+l"(w[j]) : "r"(m));
+        else
+          asm("mad.lo.u32 %0, %0, %1, %2;" : "+r"(y[j]) : "r"(m), "r"(x[j]));
+      }
+    }
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++)
+    acc ^= kWide ? (uint32_t)w[j] ^ (uint32_t)(w[j] >> 32) : y[j];
+  out[t] = acc;
+}
+__global__ void __launch_bounds__(256) rate_narrow(uint32_t* out, uint32_t m,
+                                                   int iters) {
+  rate_probe<false>(out, m, iters);
+}
+__global__ void __launch_bounds__(256) rate_wide(uint32_t* out, uint32_t m,
+                                                 int iters) {
+  rate_probe<true>(out, m, iters);
+}
+}  // namespace h2t
+
+// ms of one launch (the mean of reps after a warm one) of 8 blocks an SM,
+// and the SM count
+extern "C" int h2t_rate_probe(int wide, int iters, int reps, float* ms,
+                              int* sms) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = *sms * 8;
+  uint32_t* out = nullptr;
+  cudaError_t err = cudaMalloc(&out, (size_t)blocks * 256 * sizeof(uint32_t));
+  if (err != cudaSuccess) return (int)err;
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  for (int r = 0; r <= reps; r++) {
+    if (r == 1) cudaEventRecord(a);
+    if (wide)
+      h2t::rate_wide<<<blocks, 256>>>(out, 0x9e3779b9u, iters);
+    else
+      h2t::rate_narrow<<<blocks, 256>>>(out, 0x9e3779b9u, iters);
+  }
+  cudaEventRecord(b);
+  err = cudaEventSynchronize(b);
+  cudaEventElapsedTime(ms, a, b);
+  *ms /= reps;
+  cudaEventDestroy(a);
+  cudaEventDestroy(b);
+  cudaFree(out);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+"""
+
+
+def imad_rates(iters: int = 4096, reps: int = 5) -> dict:
+    """The card's multiply-add rates: for IMAD and for IMAD.WIDE.U32, the
+    instructions each probe kernel's loop issues (from its SASS), the ms of
+    a launch, and the instructions a nanosecond an SM; `wide_over_narrow`
+    is their ratio, which no clock enters."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"rate_probe{os.getpid()}.cu"
+    so = src.with_suffix(".so")
+    src.write_text(_RATE_PROBE)
+    try:
+        subprocess.run([_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-o", str(so), str(src)], capture_output=True,
+                       text=True, check=True)
+        ops = sass_opcodes(so, full=True)
+        probe = ctypes.CDLL(str(so))
+        fn = probe.h2t_rate_probe
+        fn.argtypes = [_I32, _I32, _I32, ctypes.POINTER(ctypes.c_float),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = {}
+        for wide, op, kern in ((0, "IMAD", "rate_narrow"),
+                               (1, "IMAD.WIDE.U32", "rate_wide")):
+            ms, sms = ctypes.c_float(0), ctypes.c_int(0)
+            check(fn(wide, iters, reps, ctypes.byref(ms), ctypes.byref(sms)),
+                  "rate_probe")
+            # the loop issues 128 of the op a trip, the set-up and the sink
+            # a few more
+            issued = sms.value * 8 * 256 * iters * 128
+            in_kernel = ops[kern].get(op, 0)
+            if in_kernel < 128:
+                raise RuntimeError(f"{kern} holds {in_kernel} {op}, not the "
+                                   f"loop's 128: {ops[kern]}")
+            out[op] = dict(ms=ms.value, in_kernel=in_kernel,
+                           per_ns_per_sm=issued / (ms.value * 1e6) / sms.value)
+    finally:
+        src.unlink(missing_ok=True)
+        so.unlink(missing_ok=True)
+    out["sms"] = sms.value
+    out["wide_over_narrow"] = (out["IMAD.WIDE.U32"]["per_ns_per_sm"]
+                               / out["IMAD"]["per_ns_per_sm"])
+    return out
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C launcher returned a nonzero cudaGetLastError()."""
     if rc != 0:
@@ -190,6 +417,12 @@ def check(rc: int, what: str) -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rates"]:
+        print(json.dumps(imad_rates()))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--sass"]:
+        print(json.dumps(sass_counts(*map(Path, sys.argv[2:4]))))
+        sys.exit(0)
     if len(sys.argv) > 1:
         text = Path(sys.argv[1]).read_text()
     else:

@@ -12,8 +12,12 @@ as csrc/curve.cuh; independent products are stacked into one call, which
 changes no value (every intermediate is canonical).
 
 `padd` ports halo2_snark_aggregator_tpu/ops/curve_pallas.py `padd_pallas`
-(and ops/curve_rr.add on batched projective points): on a CUDA tensor it
-launches the kernel, on a CPU tensor its twin `padd_plain` runs.
+(and ops/curve_rr.add on batched projective points). `fixed_base` ports the
+sum that the JAX package's prover/srs.fixed_base_msm makes with a tree of
+those adds: every scalar's 32 digit points of the SRS's fixed-base table,
+summed in one launch (csrc/curve.cu `fixed_base_kernel`). On a CUDA tensor
+each wrapper launches its kernel, on a CPU tensor its twin (`padd_plain`,
+`fixed_base_plain`) runs.
 """
 
 from __future__ import annotations
@@ -188,6 +192,95 @@ def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(a.device).cuda_stream)
     build.check(rc, "curve_padd")
     build.count_launch("curve_padd")
+    return out
+
+
+# -- the fixed-base sum (csrc/curve.cu) --------------------------------------------
+
+WINDOW = 8                   # bits a digit
+POSITIONS = 256 // WINDOW    # 32 digits a scalar
+
+
+def digit_points(scalars_std: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(32, n, 3, 8): the table row of each scalar's digit at each position
+    (byte j of a scalar's standard-form words is position j's digit)."""
+    shifts = torch.arange(0, 32, WINDOW, device=table.device)
+    digits = ((scalars_std.long() & 0xFFFFFFFF)[..., None] >> shifts) & 0xFF
+    rows = digits.reshape(-1, POSITIONS).T
+    return table[rows + (torch.arange(POSITIONS, device=table.device)[:, None]
+                         << WINDOW)]
+
+
+def padd_tree(points: torch.Tensor) -> torch.Tensor:
+    """(2^h, n, 3, 8) -> (n, 3, 8): the sum over the first axis as the JAX
+    package's prover/srs.fixed_base_msm makes it from `digit_points`, one
+    `padd` a level (row j plus row j + half). Normalised, it equals
+    `fixed_base` of the same scalars."""
+    n = points.shape[1]
+    while points.shape[0] > 1:
+        half = points.shape[0] // 2
+        points = padd(points[:half].reshape(-1, 3, 8),
+                      points[half:].reshape(-1, 3, 8)).reshape(half, n, 3, 8)
+    return points[0]
+
+
+def _check_fixed_base(scalars_std: torch.Tensor, table: torch.Tensor) -> None:
+    if (scalars_std.dtype != torch.int32 or scalars_std.dim() != 2
+            or scalars_std.shape[1] != fo.WORDS):
+        raise ValueError(f"scalars_std: want int32 (n, 8), got "
+                         f"{scalars_std.dtype} {tuple(scalars_std.shape)}")
+    if not scalars_std.is_contiguous():
+        raise ValueError("scalars_std must be contiguous")
+    _check_points(table, "table", POSITIONS << WINDOW, scalars_std.device)
+
+
+def fixed_base_plain(scalars_std: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The fixed-base kernel's semantics in plain PyTorch: each scalar walks
+    its 32 positions in order; its first nonzero digit's row becomes its
+    accumulator, each later nonzero digit's row is mixed-added, zero digits
+    are skipped (a scalar with none gives the identity)."""
+    _check_fixed_base(scalars_std, table)
+    shifts = torch.arange(0, 32, WINDOW, device=table.device)
+    digits = (((scalars_std.long() & 0xFFFFFFFF)[..., None] >> shifts) & 0xFF
+              ).reshape(-1, POSITIONS)
+    one = fo.halves(fo.const(FQ, 1, table.device)[0])
+    zero = torch.zeros_like(one)
+    acc = tuple(c.expand(digits.shape[0], -1) for c in (zero, one, zero))
+    started = torch.zeros((digits.shape[0], 1), dtype=torch.bool,
+                          device=table.device)
+    for j in range(POSITIONS):
+        d = digits[:, j]
+        rows = table[(j << WINDOW) + d]
+        qx, qy = fo.halves(rows[:, 0]), fo.halves(rows[:, 1])
+        added = mixed_add_h(acc, qx, qy)
+        live = (d != 0)[:, None]
+        first = live & ~started
+        later = live & started
+        acc = tuple(torch.where(later, s, torch.where(first, f, a))
+                    for s, f, a in zip(added, (qx, qy, one.expand_as(qx)),
+                                       acc))
+        started = started | live
+    return torch.stack([fo.words(c) for c in acc], dim=1)
+
+
+def fixed_base(scalars_std: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[s_i G for each scalar] as (n, 3, 8) projective words: scalars_std
+    (n, 8) int32 standard-form words (any 256-bit values), table the (32 *
+    256, 3, 8) affine digit table T[j][d] = d 2^(8j) G (prover/srs.g1_table).
+    On a CUDA tensor one launch, one thread a scalar; on a CPU tensor the
+    twin."""
+    _check_fixed_base(scalars_std, table)
+    if table.device.type == "cpu":
+        return fixed_base_plain(scalars_std, table)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    n = scalars_std.shape[0]
+    out = torch.empty((n, 3, fo.WORDS), dtype=torch.int32, device=table.device)
+    rc = build.library().h2t_fixed_base(
+        scalars_std.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    build.check(rc, "fixed_base")
+    build.count_launch("fixed_base")
     return out
 
 

@@ -1,6 +1,7 @@
 """Radix-2 NTT over BN254 Fr: the host plan, the batched transform
-`ntt_batch` (csrc/ntt.cu's pass kernel) and the 1/n scale with their plain
-twins, and `ntt_auto`, the transform of one vector.
+`ntt_batch` (csrc/ntt.cu's pass kernel, whose last pass of an inverse also
+applies the 1/n scale) with its plain twin, and `ntt_auto`, the transform
+of one vector.
 
 The reference is halo2_snark_aggregator_tpu/ops/ntt.py (`_plan`, `ntt`,
 `ntt_auto`) and ops/ntt_pallas.py (`_butterfly_kernel` run by `_ntt_fused`
@@ -114,35 +115,15 @@ def butterfly_plain(x: torch.Tensor, tw: torch.Tensor, half: int) -> None:
 
 
 def scale_plain(x: torch.Tensor, c_words: np.ndarray) -> torch.Tensor:
-    """The scale kernel's semantics in plain PyTorch."""
+    """x (..., 8) times a Montgomery constant c (8 canonical words): x c
+    2^-256 mod r, the inverse's last step (on the card, the last pass's
+    epilogue)."""
+    if x.dtype != torch.int32 or x.shape[-1] != fo.WORDS:
+        raise ValueError(f"x: want int32 (..., 8), got {x.dtype} "
+                         f"{tuple(x.shape)}")
     c = fo.to_tensor(np.asarray(c_words, np.uint32).reshape(1, fo.WORDS),
                      x.device)
     return fo.mont_mul(FR, x, c.expand_as(x))
-
-
-def scale(x: torch.Tensor, c_words: np.ndarray,
-          out: torch.Tensor | None = None) -> torch.Tensor:
-    """x * c * 2^-256 mod r for a Montgomery constant c (8 canonical words);
-    `out` may be x itself."""
-    n = x.shape[0]
-    _check(x, "x", n)
-    c_words = np.ascontiguousarray(c_words, dtype=np.uint32).reshape(fo.WORDS)
-    if out is None:
-        out = torch.empty_like(x)
-    _check(out, "out", n)
-    if out.device != x.device:
-        raise ValueError("x and out on different devices")
-    if x.device.type == "cpu":
-        out.copy_(scale_plain(x, c_words))
-        return out
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    rc = build.library().h2t_ntt_scale(
-        x.data_ptr(), out.data_ptr(), c_words.ctypes.data, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "ntt_scale")
-    build.count_launch("ntt_scale")
-    return out
 
 
 # -- the transform ------------------------------------------------------------------
@@ -196,7 +177,9 @@ def ntt_batch_plain(x: torch.Tensor, k: int, inverse: bool = False,
                     coset: torch.Tensor | None = None) -> torch.Tensor:
     """The transform kernel's semantics in plain PyTorch, pass by pass
     (`pass_bounds(k, r)`): the bit-reversed load (times coset[source row]
-    when a coset factor is given), the passes, then the inverse's 1/n."""
+    when a coset factor is given), the passes, then the inverse's 1/n (the
+    kernel's last pass applies it as it stores; each product is canonical,
+    so the words agree)."""
     b, n = x.shape[0], 1 << k
     rev, tw, n_inv = device_plan(k, inverse, x.device)
     y = x[:, rev]
@@ -205,7 +188,7 @@ def ntt_batch_plain(x: torch.Tensor, k: int, inverse: bool = False,
     for s0, s1 in pass_bounds(k, r):
         y = _pass_plain(y, tw, k, s0, s1)
     if inverse:
-        y = scale_plain(y.reshape(b * n, fo.WORDS), n_inv).reshape(b, n, fo.WORDS)
+        y = scale_plain(y, n_inv)
     return y.contiguous()
 
 
@@ -216,8 +199,8 @@ def ntt_batch(x: torch.Tensor, k: int, inverse: bool = False,
     omega^i, in order; inverse: back, the 1/n scale included. `coset` (2^k,
     8) multiplies each coefficient row first (a coset extension: coset[i] =
     zeta^i gives evaluations at zeta omega^i). On a CUDA tensor: one launch
-    a pass (`pass_bounds(k)`, two at 11 <= k <= 20), then for the inverse
-    one scale launch over the batch."""
+    a pass (`pass_bounds(k)`, two at 11 <= k <= 20); an inverse's last pass
+    multiplies by n^-1 as it stores."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k = {k} outside 1 .. {MAX_K}")
     n = 1 << k
@@ -243,19 +226,19 @@ def ntt_batch(x: torch.Tensor, k: int, inverse: bool = False,
     _rev, tw, n_inv = device_plan(k, inverse, x.device)
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i, (s0, s1) in enumerate(pass_bounds(k)):
+    bounds = pass_bounds(k)
+    for i, (s0, s1) in enumerate(bounds):
         # pass 1 reads x in bit-reversed order (and the coset factor);
-        # later passes update `out` in place, each block its own rows
-        first = i == 0
+        # later passes update `out` in place, each block its own rows; an
+        # inverse's last pass scales by n^-1 (a cached host array)
+        first, last = i == 0, i == len(bounds) - 1
         rc = lib.h2t_ntt_pass(
             x.data_ptr() if first else out.data_ptr(), out.data_ptr(),
             tw.data_ptr(), coset.data_ptr() if first and coset is not None else None,
+            n_inv.ctypes.data if last and inverse else None,
             b, k, s0, s1, int(first), stream)
         build.check(rc, "ntt_transform")
         build.count_launch("ntt_transform")
-    if inverse:
-        flat = out.view(b * n, fo.WORDS)
-        scale(flat, n_inv, out=flat)
     return out
 
 

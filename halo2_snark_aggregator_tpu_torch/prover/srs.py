@@ -8,10 +8,11 @@ the same points:
 
   * 8-bit windows over 256-bit scalars give 32 digit positions;
   * a host table T[j][d] = d 2^(8j) G (32 x 256 points) lives on the device;
-  * each element's 32 table points are picked by a plain gather (the
-    reference's one-hot matmul was a trick for the TPU's matrix unit);
-  * they are summed by a 5-level tree of complete adds (the padd kernel,
-    ops/curve.padd);
+  * one launch (ops/curve.fixed_base) sums each scalar's 32 table points,
+    cutting the digits out of the scalar's words itself (the reference
+    selects the points with a one-hot matmul for the TPU's matrix unit and
+    sums them in a 5-level tree of jitted add programs, a TPU compile
+    limit);
   * the sums are normalised to affine (z = 1) on the device before anything
     reads the table: the MSM kernels take affine rows only.
 
@@ -36,8 +37,8 @@ from ..ops import field as fo
 from .accel import AccelParams
 from .domain import Domain
 
-WINDOW = 8
-POSITIONS = 256 // WINDOW  # 32
+WINDOW = cv.WINDOW
+POSITIONS = cv.POSITIONS  # 32
 CACHE_DIR = Path(__file__).resolve().parent.parent / "_cache"
 
 
@@ -64,32 +65,14 @@ def g1_table(device) -> torch.Tensor:
     return torch.stack(cv.from_affine_ints(flat, device), dim=1)
 
 
-def digit_points(scalars_std: np.ndarray, table: torch.Tensor) -> torch.Tensor:
-    """(POSITIONS, n, 3, 8): the table point of each scalar's digit at each
-    position. scalars_std: uint32 (n, 8) standard-form words; byte j of a
-    scalar is its digit at position j."""
-    digits = np.ascontiguousarray(scalars_std, dtype="<u4").view(np.uint8)
-    dig = torch.from_numpy(digits.T.astype(np.int64)).to(table.device)
-    base = torch.arange(POSITIONS, device=table.device)[:, None] << WINDOW
-    return table[base + dig]
-
-
-def fixed_base_msm(scalars_std: np.ndarray, table: torch.Tensor,
-                   chunk: int = 1 << 16) -> torch.Tensor:
+def fixed_base_msm(scalars_std: np.ndarray, table: torch.Tensor) -> torch.Tensor:
     """[s_i G for each scalar] as (n, 3, 8) projective words on the table's
-    device: each chunk's digit points summed by a tree of padd levels."""
-    n = scalars_std.shape[0]
-    out = torch.empty((n, 3, fo.WORDS), dtype=torch.int32, device=table.device)
-    for lo in range(0, n, chunk):
-        pts = digit_points(scalars_std[lo : lo + chunk], table)
-        m = pts.shape[1]
-        while pts.shape[0] > 1:
-            half = pts.shape[0] // 2
-            pts = cv.padd(pts[:half].reshape(-1, 3, fo.WORDS),
-                          pts[half:].reshape(-1, 3, fo.WORDS)
-                          ).reshape(half, m, 3, fo.WORDS)
-        out[lo : lo + m] = pts[0]
-    return out
+    device: scalars_std uint32 (n, 8) standard-form words, one launch of the
+    fixed-base kernel."""
+    return cv.fixed_base(fo.to_tensor(scalars_std, table.device), table)
+
+
+SEED = b"halo2-snark-aggregator-tpu"
 
 
 def _tau_for(k: int, seed: bytes) -> int:
@@ -97,7 +80,16 @@ def _tau_for(k: int, seed: bytes) -> int:
         hashlib.sha256(seed + k.to_bytes(4, "little")).digest(), "little") % ff.R
 
 
-def unsafe_setup_accel(k: int, seed: bytes = b"halo2-snark-aggregator-tpu",
+def tau_powers(k: int, seed: bytes = SEED) -> list[int]:
+    """[tau^i for i < 2^k], the SRS's scalars."""
+    tau = _tau_for(k, seed)
+    taus = [1] * (1 << k)
+    for i in range(1, 1 << k):
+        taus[i] = taus[i - 1] * tau % ff.R
+    return taus
+
+
+def unsafe_setup_accel(k: int, seed: bytes = SEED,
                        lagrange_prefix: int = 4096, *,
                        device="cuda") -> AccelParams:
     """Device-generated unsafe SRS; same tau and points as
@@ -105,10 +97,7 @@ def unsafe_setup_accel(k: int, seed: bytes = b"halo2-snark-aggregator-tpu",
     dev = dv.resolve(device)
     tau = _tau_for(k, seed)
     n = 1 << k
-    taus = [1] * n
-    for i in range(1, n):
-        taus[i] = taus[i - 1] * tau % ff.R
-    proj = fixed_base_msm(fo.ints_to_words(taus), g1_table(dev))
+    proj = fixed_base_msm(fo.ints_to_words(tau_powers(k, seed)), g1_table(dev))
     g_dev = cv.normalize_affine(proj)
 
     # Lagrange-basis prefix for (small) instance-column commitments:

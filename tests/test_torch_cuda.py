@@ -243,6 +243,43 @@ def test_padd_kernel_matches_twin(cuda):
                                                 for p, q in zip(a, b)]
 
 
+_FB_SCALARS = [0, 1, ff.R - 1, (0x01 << 248) | (0x0203 << 120) | 0x04,
+               (1 << 256) - 1, 0xff << 128]
+
+
+@pytest.mark.parametrize("n", [75, 1000])
+def test_fixed_base_kernel_matches_twin(cuda, n):
+    """The fixed-base kernel word for word against its twin on special
+    scalars (0, 1, r - 1, zero digits inside, all 32 digits 0xff, one
+    nonzero digit) and random ones, n scalars (a partial last block);
+    affine sums == host."""
+    rng = np.random.default_rng(21)
+    scal = _FB_SCALARS + [int.from_bytes(rng.bytes(32), "little")
+                          for _ in range(n - len(_FB_SCALARS))]
+    sw = fo.to_tensor(fo.ints_to_words(scal), cuda)
+    table = srs.g1_table(cuda)
+    before = build.LAUNCHES["fixed_base"]
+    got = cv.fixed_base(sw, table)
+    assert build.LAUNCHES["fixed_base"] == before + 1
+    want = cv.fixed_base_plain(sw, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cv.to_affine_ints(got[:75].unbind(1)) == [
+        ff.g1_mul(ff.G1_GEN, v) if v % ff.R else None for v in scal[:75]]
+
+
+def test_unsafe_setup_accel_on_card(cuda):
+    """The SRS on the card: one fixed-base launch, no padd launch, the
+    table the CPU setup makes, word for word."""
+    k = 8
+    before = dict(build.LAUNCHES)
+    params = srs.unsafe_setup_accel(k, lagrange_prefix=4, device=cuda)
+    assert build.LAUNCHES["fixed_base"] == before["fixed_base"] + 1
+    assert build.LAUNCHES["curve_padd"] == before["curve_padd"]
+    host = srs.unsafe_setup_accel(k, lagrange_prefix=4, device="cpu")
+    assert torch.equal(params.g_dev.cpu(), host.g_dev)
+
+
 @pytest.mark.parametrize("k,b,with_coset", [(4, 1, False), (11, 3, False),
                                              (16, 8, True)])
 def test_ntt_butterfly_matches_twin(cuda, k, b, with_coset):
@@ -282,15 +319,20 @@ def test_field_program_matches_twin(cuda):
 
 
 def test_ntt_scale_and_transform(cuda):
-    k = 10
-    x = _rand(fo.FR, (1 << k,), 14, cuda)
-    c = pn._plan(k, True)[2]
-    before = build.LAUNCHES["ntt_scale"]
-    assert torch.equal(pn.scale(x, c), pn.scale_plain(x, c))
-    assert build.LAUNCHES["ntt_scale"] == before + 1
-    fwd = pn.ntt_auto(x, k)
-    assert torch.equal(fwd.cpu(), pn.ntt_auto(x.cpu(), k))
-    assert torch.equal(pn.ntt_auto(fwd, k, inverse=True), x)
+    """The inverse transform scales by 1/n in its last pass: one launch a
+    pass, no scale launch (one pass at k = 10, two at k = 12), equal to the
+    twin word for word; inverse(forward) is the input."""
+    assert "ntt_scale" not in build.LAUNCHES
+    for k in (10, 12):
+        x = _rand(fo.FR, (2, 1 << k), 14, cuda)
+        before = dict(build.LAUNCHES)
+        got = pn.ntt_batch(x, k, inverse=True)
+        assert {n: c - before[n] for n, c in build.LAUNCHES.items()
+                if c != before[n]} == {"ntt_transform": len(pn.pass_bounds(k))}
+        assert torch.equal(got, pn.ntt_batch_plain(x, k, inverse=True))
+        fwd = pn.ntt_auto(x[0], k)
+        assert torch.equal(fwd.cpu(), pn.ntt_auto(x[0].cpu(), k))
+        assert torch.equal(pn.ntt_auto(fwd, k, inverse=True), x[0])
 
 
 def test_zkevm_k7_proof_on_card(cuda):

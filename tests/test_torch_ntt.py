@@ -1,5 +1,5 @@
-"""The port's NTT (ops/ntt.py) on the CPU, where the transform and scale
-wrappers run their plain twins, against the reference: the JAX package's
+"""The port's NTT (ops/ntt.py) on the CPU, where the transform wrapper
+runs its plain twin, against the reference: the JAX package's
 host-exact NTT (prover/domain) and its `ntt_host_ints` at k = 4..8, and
 its jnp `ops/ntt.ntt` on the same Montgomery words at k = 4 and 8 (each k
 is a separate jit compile of a few seconds, so the jnp check takes the two
@@ -88,13 +88,16 @@ def test_butterfly_twin_is_one_stage(half):
 
 
 def test_scale_twin():
+    """scale_plain, the inverse's 1/n step (on the card, the last pass's
+    epilogue), on one vector and on a batch of vectors."""
     vals = _values(7, 16)
     x = fo.mont_words(fo.FR, vals, "cpu")
     c = 1234567
-    out = pn.scale(x, fo.ints_to_words([fo.FR.to_mont_int(c)])[0])
+    cw = fo.ints_to_words([fo.FR.to_mont_int(c)])[0]
+    out = pn.scale_plain(x, cw)
     assert fo.from_mont_words(fo.FR, out) == [v * c % ff.R for v in vals]
-    pn.scale(x, fo.ints_to_words([fo.FR.to_mont_int(c)])[0], out=x)
-    assert torch.equal(x, out)
+    assert torch.equal(pn.scale_plain(torch.stack([x, out]), cw),
+                       torch.stack([out, pn.scale_plain(out, cw)]))
 
 
 def test_wrappers_refuse_bad_shapes():
@@ -118,7 +121,9 @@ def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError):
         pn.ntt_auto(x, 5)
     with pytest.raises(ValueError):
-        pn.scale(x[:, :4], np.zeros(8, np.uint32))
+        pn.ntt_batch(x[None, :, :4].contiguous(), 4, inverse=True)
+    with pytest.raises(ValueError):
+        pn.scale_plain(x[:, :4], np.zeros(8, np.uint32))
 
 
 # -- the batched transform -----------------------------------------------------

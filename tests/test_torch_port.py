@@ -80,6 +80,30 @@ def test_build_digest_covers_every_source():
     assert set(build.LAUNCHES) == set(build.KERNELS)
 
 
+def test_parse_sass_counts_each_kernel():
+    """Opcodes per kernel from cuobjdump -sass text: predicated
+    instructions count, NOPs do not, template instances add up; with
+    `full`, an opcode keeps its modifiers."""
+    dump = """
+\t\tFunction : _ZN3h2t11padd_kernelEPKjS1_Pjl
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R0, 0x20, R2 ;
+        /*0020*/               @!P0 IADD3.X R5, R4, R4, RZ, P0, !PT ;
+        /*0030*/                   IMAD.HI.U32 R6, R7, R8, RZ ;
+        /*0040*/                   NOP ;
+\t\tFunction : _ZN3h2t12field_kernelILi0EEEviPKj
+        /*0000*/                   IADD3 R1, R2, R3, RZ ;
+\t\tFunction : _ZN3h2t12field_kernelILi1EEEviPKj
+        /*0000*/                   IADD3 R1, R2, R3, RZ ;
+        /*0010*/                   EXIT ;
+"""
+    assert build.parse_sass(dump) == {
+        "padd_kernel": {"LDC": 1, "IMAD": 2, "IADD3": 1},
+        "field_kernel": {"IADD3": 2, "EXIT": 1}}
+    assert build.parse_sass(dump, full=True)["padd_kernel"] == {
+        "LDC": 1, "IMAD.WIDE.U32": 1, "IADD3.X": 1, "IMAD.HI.U32": 1}
+
+
 def test_ptxas_usage_reads_each_kernel():
     """Registers, stack and spills per kernel from an nvcc -Xptxas -v log:
     template instances keep the largest figures, and a called function's
