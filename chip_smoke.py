@@ -42,8 +42,28 @@ Phases (each prints one line; any failure raises and exits nonzero):
   8. prove: fixture proof 0 made on the card with device commits must equal
      the committed bytes; stage split, launches, commit loads and split, the
      host vs device commit A/B on one 2^16-scalar vector; then that proof with
-     fixtures 1-3 through the batch-4 verifier, equal to the oracle.
-Then a JSON line of the kernels (per launch: `ms`, torch.profiler's device
+     fixtures 1-3 through the batch-4 verifier, equal to the oracle;
+  9. K=18: the 131-column zkevm-shape workload (fixtures.WORKLOADS[18]).
+     9a the 2^18 SRS and the key on the card, fingerprint 767a119919e3df76;
+     9b proof 0 with device commits equal to the committed bytes, seconds
+     and peak device bytes by stage, the working set and the k=22
+     aggregator's estimate against the 72 GB spill limit; every kernel at
+     its K=18 shape against its twin: 9c the fixed-base sum over the 2^18
+     tau powers (built on the card == the host list) and the field kernel at
+     2^18, 9d the plan built on the card == the host plan and the transform
+     over the quotient's 321 columns (the twin on three of them), 9e the
+     1,375-instruction row program (the twin over 4,096 rows), 9f one 2^18
+     commit (plan, accumulate, reduce against their twins, the total against
+     the native MSM), 9g the sponge chain of the K=18 verifier; 9h the
+     batched verifier: batch 2 == the value oracle, batch 128 (the proof
+     tiled as the bench tiles it) passes and is timed, a flipped byte fails;
+ 10. k=22: the SRS built on the card, cached and loaded back, a few rows
+     against the host g1_mul; one commit of 2^22 random scalars against the
+     native host Pippenger, its split by phase and its largest row load;
+     the plan built on the card == the host plan, and one 2^22 vector
+     through the three-pass transform == its twin, inverse(forward) == x.
+Then a JSON line of the K=18 proof's and verifier's numbers and the 2^22
+commit's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
 path; their registers and spills from ptxas and machine instructions; for
@@ -51,7 +71,9 @@ the sponge, the whole chain's times; for the accumulate, the plan's time;
 for the fixed-base sum, the padd tree's time; for the transform, one
 vector's times beside the batch's and the inverse's, and the inverse's
 extra time, which holds the 1/n epilogue; for the row
-program, its size), the nvidia-smi line, and the final JSON line
+program, its size; under `k18`, each kernel's launches on the K=18
+paths and its check at the K=18 shape), the nvidia-smi line, and the
+final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
 """
@@ -115,6 +137,9 @@ PATH_KERNELS = {
     "prove": ("field", "field_program", "ntt_transform", "msm_accumulate",
               "msm_reduce"),
 }
+PATH_KERNELS.update(setup_keygen_k18=PATH_KERNELS["setup_keygen"],
+                    prove_k18=PATH_KERNELS["prove"],
+                    verify_k18=PATH_KERNELS["verify"])
 
 
 def phase(name: str, msg: str) -> None:
@@ -232,13 +257,17 @@ def rand_field(spec, shape, rng, device):
 
 
 def rand_fr_bulk(shape, rng, device) -> torch.Tensor:
-    """Canonical Fr words, shape + (8,), made in bulk: uniform words with
-    the top word below r's (so every value is below r)."""
+    """Canonical Fr words, shape + (8,), made in bulk on `device` from a
+    generator seeded by `rng`: uniform words with the top word below r's
+    (so every value is below r)."""
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
 
-    w = rng.integers(0, 1 << 32, size=(*shape, 8), dtype=np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    w = torch.randint(0, 1 << 32, (*shape, 8), dtype=torch.int64,
+                      generator=gen, device=device)
     w[..., 7] %= int(fo.FR.p_words[7])
-    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def value_oracle(params, vk, proofs, insts):
@@ -392,22 +421,25 @@ def poseidon_imads() -> int:
     return pspec.R_F * full + pspec.R_P * partial
 
 
-def check_poseidon(dev, rng, bv, bound, results):
+def check_poseidon(dev, rng, bv, bound, results, tag="4b poseidon",
+                   twin_lanes=None):
     """The sponge-chain kernel on the verifier's own call table at its batch
     (the compiled tape of phase 6): the whole chain in one launch against
-    the twin run on the CPU (where its many small ops run faster), then
-    timed; then one call alone, two absorb cases against the twin on the
-    card, the first timed (the kernel's `ms` and the twin's `plain_ms`)."""
+    the twin run on the CPU (where its many small ops run faster) over the
+    first `twin_lanes` lanes (default all), then timed; then one call
+    alone, two absorb cases against the twin on the card, the first timed
+    (the kernel's `ms` and the twin's `plain_ms`)."""
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.ops import poseidon as po
 
     chain, lanes = bv.run_tape.sponge, bv.batch
     n_calls = chain.n_in.shape[0]
     base = rand_field(fo.FR, (bv.run_tape.n_slots, lanes), rng, dev)
-    buf_k, buf_p = base.clone(), base.cpu()
+    tl = lanes if twin_lanes is None else twin_lanes
+    buf_k, buf_p = base.clone(), base[:, :tl].cpu()
     po.sponge_chain(buf_k, chain)
     po.sponge_chain_plain(buf_p, po.SpongeChain(*(t.cpu() for t in chain)))
-    errs = [max_abs_err(buf_k.cpu(), buf_p)]
+    errs = [max_abs_err(buf_k[:, :tl].cpu(), buf_p)]
     t_chain = timed(lambda: po.sponge_chain(buf_k, chain),
                     "poseidon_chain_kernel", 5)
     one = rand_field(fo.FR, (26, lanes), rng, dev)
@@ -425,8 +457,9 @@ def check_poseidon(dev, rng, bv, bound, results):
     if err:
         raise AssertionError(f"poseidon kernel differs from its twin: {err}")
     t, plain_ms = times[0]
-    phase("4b poseidon", f"exact on all {n_calls} of the verifier's calls x "
-          f"{lanes} lanes (one launch against the twin on the CPU) and on one "
+    phase(tag, f"exact on all {n_calls} of the verifier's calls x "
+          f"{tl} of {lanes} lanes (one launch against the twin on the CPU) "
+          f"and on one "
           f"call (8 inputs; 3 inputs + pad); whole chain {t_chain['ms']:.4f} "
           f"ms device in one launch ({t_chain['ms'] / n_calls:.4f} ms a call, "
           f"{t_chain['launch_ms']:.4f} ms launch); one call {t['ms']:.4f} ms "
@@ -440,9 +473,10 @@ def check_poseidon(dev, rng, bv, bound, results):
         bound=bound(lanes * 26 * 32, lanes * poseidon_imads()))
 
 
-def check_msm(dev, rng, params, bound, results):
+def check_msm(dev, rng, params, bound, results, tag="4c msm"):
     """The split plan and the accumulate and reduce kernels at one commit of
-    the prover: the 2^16-point affine SRS table, c = 8, uniform scalars.
+    the prover: the params' 2^k-point affine SRS table, c = 8, uniform
+    scalars.
     The plan built on the card must equal the numpy copy's; each kernel
     its twin on the card; the row combine the native MSM."""
     from halo2_snark_aggregator_tpu_torch import device as dv
@@ -484,7 +518,7 @@ def check_msm(dev, rng, params, bound, results):
     lanes = rows * nb
     acc_bound = bound(n * 64 + plan[0].numel() * 4 + lanes * 8 + rows * 4
                       + lanes * 96, adds * MIXED_ADD_MULS * MONT_MUL_IMAD)
-    phase("4c msm", f"split plan on the card == numpy copy's; exact over {n} "
+    phase(tag, f"split plan on the card == numpy copy's; exact over {n} "
           f"points, c={c}, max bucket load {stats['max_load']}, max row load "
           f"{stats['max_row_load']} (target {stats['target']}), {rows} rows, "
           f"{lanes} lanes ({int((plan[2] > 0).sum())} with points), {adds} "
@@ -549,7 +583,11 @@ def check_padd(dev, rng, params, bound, results):
     # before the fixed-base kernel: its first level (2^20 pairs) against the
     # twin and timed, its normalised sum against phase 3's SRS
     n = params.n
-    sw = fo.to_tensor(fo.ints_to_words(srs.tau_powers(NTT_K)), dev)
+    sw = srs.tau_powers_words(NTT_K, dev)
+    if not torch.equal(sw, fo.to_tensor(fo.ints_to_words(srs.tau_powers(NTT_K)),
+                                         dev)):
+        raise AssertionError("tau powers built on the card differ from the "
+                             "host list")
     table = srs.g1_table(dev)
     pts = cv.digit_points(sw, table)
     half = pts.shape[0] // 2
@@ -576,7 +614,8 @@ def check_padd(dev, rng, params, bound, results):
     phase("4d padd", f"exact over {PADD_PAIRS} pairs (identity either side and "
           f"both, P + P, P + (-P), projective inputs) and the first level of "
           f"the tree of adds over the K={NTT_K} SRS's digit points ({m} "
-          f"pairs), whose normalised sum == phase 3's SRS word for word; "
+          f"pairs; the tau powers built on the card == the host list), whose "
+          f"normalised sum == phase 3's SRS word for word; "
           f"first level "
           f"{t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms launch (plain "
           f"{t['plain_ms']:.1f} ms); the whole tree with its gather "
@@ -589,10 +628,12 @@ def check_padd(dev, rng, params, bound, results):
     return sw, table, tree, (tree_ms, tree_launch_ms)
 
 
-def check_fixed_base(dev, sw, table, tree, tree_times, bound, results):
-    """The fixed-base kernel over the K=16 tau powers against its twin (on
-    the card) word for word, its normalised sum against the padd tree's;
-    on special scalars against the twin; timed beside the tree."""
+def check_fixed_base(dev, sw, table, srs_affine, tree_times, bound, results,
+                     tag="4d fixed_base"):
+    """The fixed-base kernel over a setup's tau powers against its twin (on
+    the card) word for word, its normalised sum against `srs_affine` (the
+    padd tree's at K=16, the setup's SRS at K=18); on special scalars against the
+    twin; timed, at K=16 beside the tree (`tree_times`, else None)."""
     from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import curve as cv
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
@@ -601,8 +642,8 @@ def check_fixed_base(dev, sw, table, tree, tree_times, bound, results):
     got = cv.fixed_base(sw, table)
     want, plain_ms = once_ms(lambda: cv.fixed_base_plain(sw, table))
     err = max_abs_err(got, want)
-    if not torch.equal(cv.normalize_affine(got), tree):
-        raise AssertionError("fixed-base sums differ from the padd tree's")
+    if not torch.equal(cv.normalize_affine(got), srs_affine):
+        raise AssertionError("fixed-base sums differ from the SRS")
     special = fo.to_tensor(fo.ints_to_words(
         [0, 1, ff.R - 1, (0x01 << 248) | (0x0203 << 120) | 0x04,
          (1 << 256) - 1]), dev)
@@ -617,26 +658,35 @@ def check_fixed_base(dev, sw, table, tree, tree_times, bound, results):
     nonzero = ((((sw.long() & 0xFFFFFFFF)[..., None] >> shifts) & 0xFF) != 0
                ).reshape(n, -1).sum(1)
     adds = int((nonzero - 1).clamp(min=0).sum().item())
-    tree_ms, tree_launch_ms = tree_times
-    phase("4d fixed_base", f"exact against its twin over the {n} K={NTT_K} tau "
-          f"powers (normalised == the padd tree's) and on 5 special scalars "
-          f"(0, 1, r - 1, zero digits inside, all digits 0xff); {adds} mixed "
-          f"adds; one launch {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms "
-          f"events (plain {plain_ms:.1f} ms); the padd tree with its gather "
-          f"{tree_ms:.4f} ms device, {tree_launch_ms:.4f} ms events")
+    k = n.bit_length() - 1
+    tree = ""
+    extra = {}
+    if tree_times is not None:
+        tree_ms, tree_launch_ms = tree_times
+        tree = (f"; the padd tree with its gather {tree_ms:.4f} ms device, "
+                f"{tree_launch_ms:.4f} ms events")
+        extra = dict(tree_ms=tree_ms, tree_launch_ms=tree_launch_ms)
+    phase(tag, f"exact against its twin over the {n} K={k} tau powers "
+          f"(normalised == the SRS) and on 5 special scalars (0, 1, r - 1, "
+          f"zero digits inside, all digits 0xff); {adds} mixed adds; one "
+          f"launch {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms events "
+          f"(plain {plain_ms:.1f} ms){tree}")
     results["fixed_base"] = dict(
-        max_abs_err=err, plain_ms=plain_ms, **t, tree_ms=tree_ms,
-        tree_launch_ms=tree_launch_ms,
-        shape=f"{n} scalars (the K=16 SRS's tau powers), {adds} mixed adds",
+        max_abs_err=err, plain_ms=plain_ms, **t, **extra,
+        shape=f"{n} scalars (the K={k} SRS's tau powers), {adds} mixed adds",
         bound=bound(n * 32 + table.numel() * 4 + n * 96,
                     adds * MIXED_ADD_MULS * MONT_MUL_IMAD))
 
 
-def check_ntt(dev, rng, bound, results, batch: int):
-    """The transform kernel at k = 16: one vector, forward and inverse, and
-    a batch of `batch` columns forward with a coset factor (the quotient
-    shard's extension) and inverse, each against its twin word for word
-    (the batch twin a few columns at a time); forward == native fr_ntt;
+def check_ntt(dev, rng, bound, results, batch: int, k: int = NTT_K,
+              twin_cols=None, tag="4e ntt"):
+    """The transform kernel at 2^k points: the plan built on the card equals
+    the host plan word for word (twiddles and bit reversal, both
+    directions); one vector, forward and inverse, and a batch of `batch`
+    columns forward with a coset factor (the quotient shard's extension)
+    and inverse, each against its twin word for word (the batch twin on
+    `twin_cols`, by default every column, 8 at a time); forward == native
+    fr_ntt;
     inverse(forward) == input. An inverse makes one launch a pass and no
     other (its last pass applies 1/n). Timed: each forward and inverse, the
     batch's forward also without the coset factor; the inverse's device
@@ -648,8 +698,17 @@ def check_ntt(dev, rng, bound, results, batch: int):
     from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
     from halo2_snark_aggregator_tpu_torch.prover.domain import omega_for_k
 
-    k = NTT_K
     n = 1 << k
+    for inverse in (False, True):
+        rev, tw, _n_inv = pn.device_plan(k, inverse, dev)
+        h_rev, h_tw, _ = pn._plan(k, inverse)
+        if not (np.array_equal(rev.cpu().numpy(), h_rev)
+                and np.array_equal(fo.to_numpy(tw), h_tw)):
+            raise AssertionError(f"the NTT plan built on the card differs from "
+                                 f"the host plan at k={k}, inverse={inverse}")
+    cols = list(range(batch)) if twin_cols is None else list(twin_cols)
+    chunks = [torch.tensor(cols[i : i + 8], device=dev)
+              for i in range(0, len(cols), 8)]
     vals = rand_ints(fo.FR.modulus, n, rng)
     x = fo.mont_words(fo.FR, vals, dev)[None]
     xb = rand_fr_bulk((batch, n), rng, dev)
@@ -660,9 +719,9 @@ def check_ntt(dev, rng, bound, results, batch: int):
                                 pn.ntt_batch_plain(x, k, inverse)))
     got = pn.ntt_batch(xb, k, coset=coset)
     want, batch_plain_ms = once_ms(lambda: torch.cat([
-        pn.ntt_batch_plain(xb[i : i + 8], k, coset=coset)
-        for i in range(0, batch, 8)]))
-    errs.append(max_abs_err(got, want))
+        pn.ntt_batch_plain(xb[c], k, coset=coset) for c in chunks]))
+    errs.append(max_abs_err(got[cols], want))
+    del got, want
     before = dict(build.LAUNCHES)
     got = pn.ntt_batch(xb, k, inverse=True)
     inv_launches = {kn: c - before[kn] for kn, c in build.LAUNCHES.items()
@@ -672,9 +731,9 @@ def check_ntt(dev, rng, bound, results, batch: int):
         raise AssertionError(f"an inverse at k={k} launched {inv_launches}, "
                              f"want {passes} transform passes and nothing else")
     want, inv_plain_ms = once_ms(lambda: torch.cat([
-        pn.ntt_batch_plain(xb[i : i + 8], k, inverse=True)
-        for i in range(0, batch, 8)]))
-    errs.append(max_abs_err(got, want))
+        pn.ntt_batch_plain(xb[c], k, inverse=True) for c in chunks]))
+    errs.append(max_abs_err(got[cols], want))
+    del got, want
     fwd = pn.ntt_auto(x[0], k)
     if fo.from_mont_words(fo.FR, fwd) != native.fr_ntt(vals, omega_for_k(k)):
         raise AssertionError("forward NTT differs from the native fr_ntt")
@@ -695,11 +754,13 @@ def check_ntt(dev, rng, bound, results, batch: int):
     tbi = both(lambda: pn.ntt_batch(xb, k, inverse=True), 5)
     _out, t1_plain = once_ms(lambda: pn.ntt_batch_plain(x, k))
     _rev, _tw, n_inv = pn.device_plan(k, True, dev)
-    _out, scale_plain_ms = once_ms(lambda: pn.scale_plain(xb, n_inv))
+    _out, scale_plain_ms = once_ms(lambda: pn.scale_plain(xb[cols], n_inv))
     scale_ms = tbi["ms"] - tbf["ms"]
-    phase("4e ntt", f"k={k}: the transform ({passes} launches, passes "
+    phase(tag, f"k={k}: the plan built on the card == the host plan; the "
+          f"transform ({passes} launches, passes "
           f"{pn.pass_bounds(k)}) exact against its twin at b=1 forward and "
-          f"inverse and at b={batch} forward with a coset factor and inverse; "
+          f"inverse and at b={batch} forward with a coset factor and inverse "
+          f"(the twin on {len(cols)} of the columns); "
           f"forward == native fr_ntt, inverse(forward) == input; an inverse "
           f"launched {inv_launches}; device ms (events ms): b=1 forward "
           f"{t1['ms']:.4f} ({t1['launch_ms']:.4f}), inverse {t1i['ms']:.4f} "
@@ -707,15 +768,16 @@ def check_ntt(dev, rng, bound, results, batch: int):
           f"forward with the coset {tb['ms']:.4f} ({tb['ms'] / batch:.4f} a "
           f"column; {tb['launch_ms']:.4f}), without {tbf['ms']:.4f} "
           f"({tbf['launch_ms']:.4f}), inverse {tbi['ms']:.4f} "
-          f"({tbi['launch_ms']:.4f}) (plain, 8 columns a call, "
+          f"({tbi['launch_ms']:.4f}) (plain over {len(cols)} columns, 8 a call, "
           f"{batch_plain_ms:.1f} / {inv_plain_ms:.1f} ms); inverse less "
           f"forward (the 1/n epilogue of the last pass, not separable from "
           f"the pass): {scale_ms:.4f} ms for {batch} columns, "
-          f"{t1i['ms'] - t1['ms']:.4f} ms for one (plain scale "
-          f"{scale_plain_ms:.2f} ms)")
+          f"{t1i['ms'] - t1['ms']:.4f} ms for one (plain scale over "
+          f"{len(cols)} columns {scale_plain_ms:.2f} ms)")
     tw_bytes = (n - 1) * 32
     results["ntt_transform"] = dict(
         max_abs_err=err, plain_ms=batch_plain_ms, **tb,
+        plain_columns=len(cols),
         shape=f"{batch} columns of n=2^{k} with a coset factor (a quotient "
               f"shard's extension), {passes} launches",
         bound=bound(batch * n * 64 + tw_bytes + n * 32,
@@ -724,46 +786,359 @@ def check_ntt(dev, rng, bound, results, batch: int):
         b1_bound_ms=bound(n * 64 + tw_bytes, n // 2 * k * MONT_MUL_IMAD)[0],
         b1_inverse_ms=t1i["ms"], b1_inverse_launch_ms=t1i["launch_ms"],
         forward_ms=tbf["ms"], inverse_ms=tbi["ms"],
-        inverse_launch_ms=tbi["launch_ms"], inverse_plain_ms=inv_plain_ms,
+        inverse_launch_ms=tbi["launch_ms"],
+        inverse_plain_ms=inv_plain_ms,
         inverse_launches=inv_launches["ntt_transform"],
         scale_replaces="halo2_snark_aggregator_tpu/ops/ntt_pallas.py:179",
         scale_ms=scale_ms, scale_plain_ms=scale_plain_ms,
         scale_bound_ms=bound(0, batch * n * MONT_MUL_IMAD)[0])
 
 
-def check_program(dev, rng, vk, bound, results):
-    """The row-program kernel on the K=16 zkevm-shape quotient program
+def program_slice(prog, cols, start: int, m: int):
+    """Rows [start, start + m) of `prog` over `cols` as a program of their
+    own: each column reference (c, rot) becomes a column of m rows read at
+    rotation 0, cols[c][(start + rot + i) mod n], so the twin over m rows
+    gives those rows of the full run."""
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    n = cols[0].shape[0]
+    rows = start + torch.arange(m, device=cols[0].device)
+    sliced = [cols[c][(rows + rot) % n].contiguous()
+              for c, rot in prog.refs.tolist()]
+    refs = np.stack([np.arange(len(sliced)), np.zeros(len(sliced), np.int64)], 1)
+    return fo.RowProgram(prog.code, refs, prog.consts, len(sliced), prog.out), sliced
+
+
+def check_program(dev, rng, vk, bound, results, slice_rows=None,
+                  tag="4f program"):
+    """The row-program kernel on the key's zkevm-shape quotient program
     (one proof, random challenges) over random extended columns, against
-    its twin on the card, word for word."""
+    its twin on the card, word for word: over all 2^k rows, or with
+    `slice_rows` m over m rows from a random start (`program_slice`)."""
     from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
     from halo2_snark_aggregator_tpu_torch.prover import quotient_program as qp
 
-    n = 1 << NTT_K
+    k = vk.k
+    n = 1 << k
     cs = vk.cs
     ch = rand_ints(ff.R, cs.num_challenges + 4, rng)
     prog, keys = qp.compile_quotient(cs, 1, ch[4:], *ch[:4])
     cols = list(rand_fr_bulk((len(keys), n), rng, dev).unbind(0))
     got = fo.run_program(prog, cols)
-    want, plain_ms = once_ms(lambda: fo.run_program_plain(prog, cols))
+    if slice_rows is None:
+        start, m = 0, n
+        want, plain_ms = once_ms(lambda: fo.run_program_plain(prog, cols))
+    else:
+        start, m = int(rng.integers(n)), slice_rows
+        sprog, scols = program_slice(prog, cols, start, m)
+        want, plain_ms = once_ms(lambda: fo.run_program_plain(sprog, scols))
+        got = torch.roll(got, -start, dims=0)[:m]
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"row-program kernel differs from its twin: {err}")
     t = timed(lambda: fo.run_program(prog, cols), "field_program_kernel", 10)
-    phase("4f program", f"K=16 quotient program ({len(prog.code)} "
+    smem = len(prog.code) * 16 + len(prog.refs) * 8 + len(prog.consts) * 32
+    phase(tag, f"K={k} quotient program ({len(prog.code)} "
           f"instructions, {prog.products} products, {prog.n_slots} slots of "
           f"{fo.PROGRAM_SLOTS}, {len(keys)} columns, {len(prog.refs)} column "
-          f"references, {len(prog.consts)} constants) exact against its twin "
-          f"over 2^{NTT_K} rows; {t['ms']:.4f} ms device, {t['launch_ms']:.4f} "
-          f"ms launch (plain {plain_ms:.1f} ms)")
+          f"references, {len(prog.consts)} constants, {smem} B of shared "
+          f"memory) exact against its twin over {m} of the 2^{k} rows (from "
+          f"row {start}); {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms "
+          f"launch (plain {plain_ms:.1f} ms over {m} rows)")
     results["field_program"] = dict(
-        max_abs_err=err, plain_ms=plain_ms, **t,
-        shape=f"K=16 quotient shard: {len(prog.code)} instructions, "
-              f"{prog.products} products, {len(keys)} columns x 2^{NTT_K} rows",
+        max_abs_err=err, plain_ms=plain_ms, plain_rows=m, **t,
+        shape=f"K={k} quotient shard: {len(prog.code)} instructions, "
+              f"{prog.products} products, {len(keys)} columns x 2^{k} rows",
         bound=bound((len(keys) + 1) * n * 32,
                     prog.products * n * MONT_MUL_IMAD),
         instructions=len(prog.code), products=prog.products,
-        slots=prog.n_slots, columns=len(keys))
+        slots=prog.n_slots, columns=len(keys), smem_bytes=smem)
+
+
+def check_elementwise(dev, rng, n: int, bound, results, tag: str):
+    """The field kernel's mul, add and sub on (n, 8) Fr polynomials against
+    its twin on the card, word for word; the mul timed."""
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    pa, pb = rand_fr_bulk((2, n), rng, dev).unbind(0)
+    errs = []
+    for mode in (fo.MUL, fo.ADD, fo.SUB):
+        out_p = torch.empty((n, 1, 8), dtype=torch.int32, device=dev)
+        fo.field_op_plain(mode, fo.FR, n, pa.reshape(n, 1, 8),
+                          pb.reshape(n, 1, 8), None, None, False, out_p, None,
+                          None)
+        errs.append(max_abs_err(fo.elementwise(mode, fo.FR, pa, pb),
+                                out_p.reshape(n, 8)))
+    err = max(errs)
+    if err:
+        raise AssertionError(f"field kernel differs from its twin: {err}")
+
+    def run_p():
+        out = torch.empty((n, 1, 8), dtype=torch.int32, device=dev)
+        fo.field_op_plain(fo.MUL, fo.FR, n, pa.reshape(n, 1, 8),
+                          pb.reshape(n, 1, 8), None, None, False, out, None,
+                          None)
+
+    t = timed(lambda: fo.elementwise(fo.MUL, fo.FR, pa, pb), "field_kernel", 20)
+    plain_ms = cuda_ms(run_p, 3)
+    phase(tag, f"mul/add/sub over {n} x 8 words exact against the twin; mul "
+          f"{t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms launch (plain "
+          f"{plain_ms:.2f} ms)")
+    results["field"] = dict(max_abs_err=err, plain_ms=plain_ms, **t,
+                            shape=f"mul {n} x 8 words (the prover's elementwise)",
+                            bound=bound(n * 96, n * MONT_MUL_IMAD))
+
+
+def native_msm_words(table, scalars_std: torch.Tensor):
+    """The native host Pippenger over an affine table and standard-form
+    scalars, handed to it as bytes straight from the words (no Python
+    ints): the oracle of a device commit at 2^22 points."""
+    from halo2_snark_aggregator_tpu_torch import native
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    tx, ty, ident = table
+    one = fo.const(fo.FQ, 1, tx.device, mont=False)
+    xs, ys = (fo.to_numpy(fo.elementwise(fo.MUL, fo.FQ, c, one.expand_as(c)))
+              .tobytes() for c in (tx, ty))
+    inf = ident.to(torch.uint8).cpu().numpy().tobytes()
+    sc = fo.to_numpy(scalars_std).tobytes()
+    lib = native._get()
+    out, outp = native._outbuf(64)
+    oinf, oinfp = native._outbuf(1)
+    lib.h2t_g1_msm(native._buf(xs), native._buf(ys), native._buf(inf),
+                   native._buf(sc), tx.shape[0], outp, oinfp)
+    if oinf.raw[0]:
+        return None
+    return (int.from_bytes(out.raw[:32], "little"),
+            int.from_bytes(out.raw[32:], "little"))
+
+
+def k18_phase(dev, rng, bound, paths, read_path, results) -> None:
+    """Phase 9: the K=18 131-column workload through the card. The SRS and
+    key (fingerprint checked), proof 0 byte-equal to the fixture with the
+    stage split and the peak device bytes of each stage, the working set
+    and the spill decision; every kernel at its K=18 shape against its
+    twin; the batched verifier: batch 2 == the value oracle, batch 128
+    (the bench's) passes, a flipped byte fails."""
+    from halo2_snark_aggregator_tpu_torch import fixtures
+    from halo2_snark_aggregator_tpu_torch import prove as pprove
+    from halo2_snark_aggregator_tpu_torch.bench import tiled_proofs
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
+    from halo2_snark_aggregator_tpu_torch.prover import quotient_program, srs
+
+    k = 18
+    wl = fixtures.workload(k)
+    gib = 1 << 30
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    params, vk, apk, timings = fixtures.setup(k, dev, "device")
+    read_path("setup_keygen_k18")
+    if paths["setup_keygen_k18"]["fixed_base"] != 1:
+        raise AssertionError("the K=18 SRS took more than one fixed-base launch")
+    phase("9a K=18 setup+keygen", f"SRS 2^{k} and the {vk.cs.num_advice_columns}"
+          f"-advice-column zkevm-shape key (n_groups {wl.n_groups}) on the "
+          f"card, vk fingerprint {wl.fingerprint}; setup {timings['setup_s']:.1f} "
+          f"s (peak {timings['setup_peak_bytes'] / gib:.2f} GiB), keygen "
+          f"{timings['keygen_s']:.1f} s (peak "
+          f"{timings['keygen_peak_bytes'] / gib:.2f} GiB); launches "
+          f"{paths['setup_keygen_k18']}")
+    run = pprove.timed_proof(params, apk, 0)  # resets the counts first
+    read_path("prove_k18")
+    want = wl.load_proofs()
+    if run["proof"] != want[0][0]:
+        raise AssertionError("the K=18 proof made on the card differs from "
+                             f"zkevm_proof_k18_{wl.fingerprint}_0.json")
+    ws = pprove.working_set(vk, max(timings["setup_peak_bytes"],
+                                    timings["keygen_peak_bytes"],
+                                    run["peak_bytes"]))
+    split = " ".join(f"{s}={v:.2f}s/{run['stages_peak_bytes'][s] / gib:.2f}GiB"
+                     for s, v in run["stages_s"].items())
+    phase("9b K=18 prove", f"proof 0 with device commits == committed bytes "
+          f"({len(run['proof'])} B); {run['seconds']:.2f} s; stages (seconds/"
+          f"peak) {split}; {run['commits']} commits, slowest "
+          f"{run['commit_s_max']:.3f} s, max bucket load "
+          f"{run['max_bucket_load']}, max row load {run['max_row_load']}; "
+          f"commit split (s, summed) "
+          f"{ {s: round(v, 3) for s, v in run['commit_split_s'].items()} }; "
+          f"launches {paths['prove_k18']}; working set: peak "
+          f"{ws['peak_bytes'] / gib:.2f} GiB over {ws['quotient_columns']} "
+          f"quotient columns, k=22 aggregator estimate "
+          f"{ws['agg_k22_estimate_bytes'] / gib:.2f} GiB, limit "
+          f"{ws['limit_bytes'] / 1e9:.0f} GB: spill "
+          f"{'needed' if ws['spill_needed'] else 'not needed'}")
+    results["prove"] = dict(
+        seconds=run["seconds"], stages_s=run["stages_s"],
+        stages_peak_bytes=run["stages_peak_bytes"], setup=timings,
+        working_set=ws, launches=run["launches"],
+        commit_split_s=run["commit_split_s"])
+
+    kernels = results.setdefault("kernels", {})
+    sw = srs.tau_powers_words(k, dev)
+    if not torch.equal(sw, fo.to_tensor(fo.ints_to_words(srs.tau_powers(k)), dev)):
+        raise AssertionError("tau powers built on the card differ from the "
+                             "host list at K=18")
+    check_fixed_base(dev, sw, srs.g1_table(dev), params.g_dev, None, bound,
+                     kernels, tag="9c fixed_base")
+    check_elementwise(dev, rng, 1 << k, bound, kernels, tag="9c field")
+    ext_cols = len(quotient_program.compile_quotient(
+        vk.cs, 1, [0] * vk.cs.num_challenges, 0, 0, 0, 0)[1])
+    check_ntt(dev, rng, bound, kernels, ext_cols, k=k,
+              twin_cols=(0, ext_cols // 2, ext_cols - 1), tag="9d ntt")
+    torch.cuda.empty_cache()
+    check_program(dev, rng, vk, bound, kernels, slice_rows=1 << 12,
+                  tag="9e program")
+    torch.cuda.empty_cache()
+    check_msm(dev, rng, params, bound, kernels, tag="9f msm")
+
+    proofs, insts = tiled_proofs(k)
+    t0 = time.perf_counter()
+    oracle = value_oracle(params, vk, proofs[:2], insts[:2])
+    oracle_s = time.perf_counter() - t0
+    bv2 = BatchedVerifier(vk, params, batch=2, sample_proof=proofs[0],
+                          sample_instances=insts[0], device=dev)
+    w_x, w_g, ok = bv2.verify(proofs[:2], insts[:2])
+    if not ok or (w_x, w_g) != oracle:
+        raise AssertionError(f"K=18 batch-2 parity failed: ok={ok}, "
+                             f"match={(w_x, w_g) == oracle}")
+    t0 = time.perf_counter()
+    bv = BatchedVerifier(vk, params, batch=len(proofs), sample_proof=proofs[0],
+                         sample_instances=insts[0], device=dev)
+    record_s = time.perf_counter() - t0
+    build.reset_launches()
+    *_pair, ok = bv.verify(proofs, insts)  # warm
+    if not ok:
+        raise AssertionError("K=18 batch-128 warm verify failed")
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        *_pair, ok = bv.verify(proofs, insts)
+        if not ok:
+            raise AssertionError("K=18 batch-128 timed verify failed")
+    dt = (time.perf_counter() - t0) / REPS
+    read_path("verify_k18")
+    off = next(ref for kind, ref in bv.manifest if kind == "scalar")
+    bad = list(proofs)
+    corrupt = bytearray(bad[5])
+    corrupt[off] ^= 0x01
+    bad[5] = bytes(corrupt)
+    try:
+        *_pair, ok = bv.verify(bad, insts)
+    except ValueError:
+        ok = False
+    if ok:
+        raise AssertionError("K=18: a corrupted proof was accepted")
+    check_poseidon(dev, rng, bv, bound, kernels, tag="9g poseidon",
+                   twin_lanes=8)
+    phase("9h K=18 verify", f"batch 2 (w_x, w_g) == value oracle (oracle "
+          f"{oracle_s:.1f} s); batch {bv.batch}: {bv.batch / dt:.2f} proofs/s "
+          f"({dt:.3f} s/verify), record {record_s:.1f} s, "
+          f"{len(bv.tape.records)} tape records, "
+          f"{sum(len(e) for e, _ in bv.msm_plans)} MSM entries/lane, "
+          f"{bv.run_tape.sponge.n_in.shape[0]} sponge calls a lane; launches "
+          f"over {REPS + 1} verifies {paths['verify_k18']}; "
+          f"flipped scalar byte of proof 5 fails; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    results["verify"] = dict(proofs_per_s=bv.batch / dt, batch=bv.batch,
+                             tape_records=len(bv.tape.records),
+                             msm_entries_per_lane=sum(len(e) for e, _ in bv.msm_plans),
+                             stages_s=bv.last_profile)
+
+
+def k22_commit(dev, rng, bound, results) -> None:
+    """Phase 10: the k=22 SRS (the aggregator's size) built on the card and
+    cached (temp file, os.replace) then loaded, a few rows against the host
+    g1_mul; one device commit of 2^22 random scalars against the native
+    host Pippenger, its split by phase and its largest row load; the
+    2^22 transform (three passes) and its plan against their twins."""
+    import tempfile
+
+    from halo2_snark_aggregator_tpu_torch import device as dv
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.ops import curve as cv
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
+    from halo2_snark_aggregator_tpu_torch.prover import srs
+
+    k = 22
+    gib = 1 << 30
+    with tempfile.TemporaryDirectory() as tmp:
+        dv.reset_peak(dev)
+        t0 = time.perf_counter()
+        params = srs.setup_cached_accel(k, cache_dir=tmp, device=dev)
+        dv.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        setup_peak = dv.peak_bytes(dev)
+        t0 = time.perf_counter()
+        again = srs.setup_cached_accel(k, cache_dir=tmp, device=dev)
+        load_s = time.perf_counter() - t0
+        if not torch.equal(again.g_dev, params.g_dev):
+            raise AssertionError("the k=22 SRS loaded from the cache differs")
+        del again
+    tau = srs._tau_for(k, srs.SEED)
+    rows = sorted({0, 1, (1 << k) - 1, *rng.integers(1 << k, size=5).tolist()})
+    got = cv.to_affine_ints(params.g_dev[rows].unbind(1))
+    if got != [ff.g1_mul(ff.G1_GEN, pow(tau, i, ff.R)) for i in rows]:
+        raise AssertionError("k=22 SRS rows differ from the host g1_mul")
+    v = rand_fr_bulk((1 << k,), rng, dev)       # Montgomery coefficients
+    params.commit_log = []
+    dv.reset_peak(dev)
+    params.commit_coeff_mont(v)                 # warm
+    point = params.commit_coeff_mont(v)
+    commit_peak = dv.peak_bytes(dev)
+    rec = params.commit_log[-1]
+    params.commit_log = None
+    t0 = time.perf_counter()
+    std = fo.elementwise(fo.MUL, fo.FR, v, fo.const(fo.FR, 1, dev, mont=False)
+                         .expand_as(v))
+    host = native_msm_words(params.table(), std)
+    host_s = time.perf_counter() - t0
+    if point != host:
+        raise AssertionError("the 2^22 device commit differs from the native "
+                             "host Pippenger")
+    split = ", ".join(f"{p} {t * 1e3:.1f}" for p, t in rec["split_s"].items())
+    acc_bound = bound((1 << k) * 64 + rec["rows"] * 256 * 96,
+                      rec["adds"] * MIXED_ADD_MULS * MONT_MUL_IMAD)
+    phase("10 k=22 commit", f"SRS 2^{k} on the card in {setup_s:.1f} s (peak "
+          f"{setup_peak / gib:.2f} GiB; cache written and loaded back in "
+          f"{load_s:.1f} s, equal; rows {rows} == host g1_mul); one device "
+          f"commit of 2^{k} random scalars == native host Pippenger "
+          f"({host_s:.1f} s): {rec['seconds']:.3f} s, split ms: {split}; max "
+          f"bucket load {rec['max_load']}, max row load {rec['max_row_load']} "
+          f"(target {rec['target']}), {rec['rows']} rows, {rec['adds']} adds "
+          f"(the accumulate's bound {acc_bound[0]:.1f} ms, {acc_bound[1]}); "
+          f"peak {commit_peak / gib:.2f} GiB")
+    # the transform at 2^22 runs three passes (8 + 7 + 7 stages)
+    for inverse in (False, True):
+        rev, tw, _n_inv = pn.device_plan(k, inverse, dev)
+        h_rev, h_tw, _ = pn._plan(k, inverse)
+        if not (np.array_equal(rev.cpu().numpy(), h_rev)
+                and np.array_equal(fo.to_numpy(tw), h_tw)):
+            raise AssertionError(f"the k=22 NTT plan built on the card differs "
+                                 f"from the host plan, inverse={inverse}")
+    x = rand_fr_bulk((1, 1 << k), rng, dev)
+    before = build.LAUNCHES["ntt_transform"]
+    fwd = pn.ntt_batch(x, k)
+    passes = build.LAUNCHES["ntt_transform"] - before
+    if passes != len(pn.pass_bounds(k)) or passes != 3:
+        raise AssertionError(f"a 2^22 transform made {passes} launches, not 3")
+    if not torch.equal(fwd, pn.ntt_batch_plain(x, k)):
+        raise AssertionError("the 2^22 transform differs from its twin")
+    if not torch.equal(pn.ntt_batch(fwd, k, inverse=True), x):
+        raise AssertionError("inverse(forward(x)) != x at 2^22")
+    ntt_ms = kernel_ms(lambda: pn.ntt_batch(x, k), "ntt_pass_kernel", 5, passes)
+    phase("10 k=22 ntt", f"the plan built on the card == the host plan; one "
+          f"2^22 vector in {passes} passes {pn.pass_bounds(k)} == its twin, "
+          f"inverse(forward) == input; forward {ntt_ms:.4f} ms device")
+    results["commit_k22"] = dict(
+        ntt_ms=ntt_ms, ntt_passes=passes,
+        setup_s=setup_s, setup_peak_bytes=setup_peak, cache_load_s=load_s,
+        seconds=rec["seconds"], split_s=rec["split_s"],
+        max_load=rec["max_load"], max_row_load=rec["max_row_load"],
+        rows=rec["rows"], adds=rec["adds"], target=rec["target"],
+        peak_bytes=commit_peak, host_s=host_s, accumulate_bound_ms=acc_bound[0])
 
 
 def commit_ab(params, rng) -> str:
@@ -795,6 +1170,25 @@ def commit_ab(params, rng) -> str:
             f"second device commit in ms: {split})")
 
 
+def k18_entry(r, paths, kname):
+    """A kernel's K=18 readings for the kernels line (None for a kernel on
+    no K=18 path, the batched padd): its launches on each K=18 path and its
+    check at the K=18 shape."""
+    if r is None:
+        return None
+    bound_ms, bound_by = r["bound"]
+    return {"launches_by_path": {p: c[kname] for p, c in paths.items()
+                                 if p.endswith("_k18") and c[kname]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": r["shape"],
+            **{k: r[k] for k in ("plain_rows", "plain_columns", "instructions",
+                                 "products", "slots", "columns", "smem_bytes",
+                                 "chain_calls", "chain_ms", "plan_ms",
+                                 "plan_device_ms", "forward_ms", "inverse_ms",
+                                 "b1_ms", "b1_bound_ms") if k in r}}
+
+
 def forbidden_modules() -> list[str]:
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -810,7 +1204,7 @@ def main() -> int:
     from halo2_snark_aggregator_tpu_torch import device as dv
     from halo2_snark_aggregator_tpu_torch import fixtures, native
     from halo2_snark_aggregator_tpu_torch import prove as pprove
-    from halo2_snark_aggregator_tpu_torch.bench import DUP, card_info
+    from halo2_snark_aggregator_tpu_torch.bench import card_info, tiled_proofs
     from halo2_snark_aggregator_tpu_torch.kernels import build
     from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
     from halo2_snark_aggregator_tpu_torch.prover import quotient_program
@@ -863,19 +1257,17 @@ def main() -> int:
             raise AssertionError(f"{path} path did not launch {missing}")
 
     build.reset_launches()
-    params, vk, apk, timings = fixtures.setup_k16(dev, "device")
+    params, vk, apk, timings = fixtures.setup(16, dev, "device")
     read_path("setup_keygen")
     if paths["setup_keygen"]["fixed_base"] != 1 or paths["setup_keygen"]["curve_padd"]:
         raise AssertionError("the SRS took more than one fixed-base launch "
                              "or a padd launch")
     phase("3 setup+keygen", f"K=16 SRS and zkevm-shape key on the card, vk "
-          f"fingerprint {fixtures.K16_FINGERPRINT}; setup "
+          f"fingerprint {fixtures.workload(16).fingerprint}; setup "
           f"{timings['setup_s']:.1f} s, keygen {timings['keygen_s']:.1f} s "
           f"(device commits); launches {paths['setup_keygen']}")
-    uniq = fixtures.load_proofs(fixtures.K16, fixtures.K16_FINGERPRINT,
-                                fixtures.K16_PROOFS)
-    proofs = [p for p, _ in uniq] * DUP
-    insts = [i for _, i in uniq] * DUP
+    uniq = fixtures.workload(16).load_proofs()
+    proofs, insts = tiled_proofs(16)
     t0 = time.perf_counter()
     bv = BatchedVerifier(vk, params, batch=len(proofs), sample_proof=proofs[0],
                          sample_instances=insts[0], device=dev)
@@ -966,9 +1358,19 @@ def main() -> int:
           f"launches {paths['prove']}; "
           f"commit A/B {ab}; batch-4 verify with fixtures 1-3 == oracle")
 
+    del bv, bv4
+    torch.cuda.empty_cache()
+    res18: dict = {}
+    k18_phase(dev, rng, bound, paths, read_path, res18)
+    torch.cuda.empty_cache()
+    res22: dict = {}
+    k22_commit(dev, rng, bound, res22)
+
     bad_mods = forbidden_modules()
     if bad_mods:
         raise AssertionError(f"imported jax or the JAX package: {bad_mods[:5]}")
+    print(json.dumps({"k18": {kk: res18[kk] for kk in ("prove", "verify")},
+                      "k22_commit": res22["commit_k22"]}))
     kernels = []
     for kname, (src, ref) in KERNEL_SOURCES.items():
         r = results[kname]
@@ -994,7 +1396,9 @@ def main() -> int:
                                  "scale_replaces", "scale_ms",
                                  "scale_plain_ms", "scale_bound_ms",
                                  "instructions", "products", "slots",
-                                 "columns") if k in r},
+                                 "columns", "smem_bytes", "plain_rows",
+                                 "plain_columns") if k in r},
+            "k18": k18_entry(res18["kernels"].get(kname), paths, kname),
             "ptxas": ptxas[PTXAS_SYMBOL[kname]],
             "sass_instructions": sass["kernels"].get(PTXAS_SYMBOL[kname])})
     print(json.dumps({"kernels": kernels}))

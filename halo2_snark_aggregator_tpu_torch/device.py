@@ -39,6 +39,21 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def reset_peak(device: torch.device) -> None:
+    """Start a new peak-memory window on `device` (nothing off the card)."""
+    if device.type == "cuda":
+        torch.cuda.init()  # the allocator's statistics need a context
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_bytes(device: torch.device) -> int | None:
+    """The most bytes allocated on `device` since the last `reset_peak`
+    (None off the card)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device)
+
+
 def profile_device(fn, device: torch.device) -> dict:
     """Run `fn` once under torch.profiler: the wall time, the device busy
     time (the sum of the device events' times: kernels, copies, fills) and

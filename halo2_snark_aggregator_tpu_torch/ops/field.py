@@ -163,20 +163,15 @@ def words(h: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-_DIAG: dict = {}
-
-
 def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook column sums of two (..., 16) int64 limb vectors:
-    (..., 32) columns (broadcasting over the leading axes)."""
-    prod = (a.unsqueeze(-1) * b.unsqueeze(-2)).flatten(-2)
-    dev = str(prod.device)
-    if dev not in _DIAG:
-        i = torch.arange(_H)
-        _DIAG[dev] = (i[:, None] + i[None, :]).flatten().to(prod.device)
-    out = torch.zeros(*prod.shape[:-1], 2 * _H, dtype=torch.int64,
-                      device=prod.device)
-    return out.index_add_(-1, _DIAG[dev], prod)
+    (..., 32) columns (broadcasting over the leading axes): column i + j
+    gathers a_i b_j, added one limb of a at a time."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)[:-1]
+    out = a.new_zeros(*shape, 2 * _H)
+    for i in range(_H):
+        out[..., i : i + _H] += a[..., i : i + 1] * b
+    return out
 
 
 def _norm(x: torch.Tensor, n: int, rounds: int) -> torch.Tensor:
@@ -194,14 +189,23 @@ def _norm(x: torch.Tensor, n: int, rounds: int) -> torch.Tensor:
         x = x & _MASK
         x[..., 1:] += c[..., :-1]
     # every limb is now <= 2^16: limb i receives a carry iff the nearest
-    # limb below it that is not 0xFFFF equals 2^16
-    pos = torch.arange(n, device=x.device).expand_as(x)
-    stop = torch.where(x == _MASK, -1, pos)
-    last = torch.cummax(stop, dim=-1).values
-    last = torch.nn.functional.pad(last[..., :-1], (1, 0), value=-1)
-    gen = torch.nn.functional.pad(x >> 16, (0, 1))
-    cin = gen.gather(-1, torch.where(last < 0, n, last))
-    return (x + cin) & _MASK
+    # limb below it that is not 0xFFFF equals 2^16. Each such limb j keys
+    # 2j + (its carry out), a 0xFFFF limb -1; the running max of the keys
+    # below i is the nearest one, its low bit the carry (none: -1 -> 0)
+    key = torch.where(x == _MASK, -1, (x >> 16) + _even_positions(n, x.device))
+    near = torch.cummax(key, dim=-1).values.clamp_(min=0) & 1
+    return (x + torch.nn.functional.pad(near[..., :-1], (1, 0))) & _MASK
+
+
+_EVEN: dict = {}
+
+
+def _even_positions(n: int, device) -> torch.Tensor:
+    """[0, 2, 4, ..., 2 (n - 1)] as int64 on `device` (cached)."""
+    key = (n, str(device))
+    if key not in _EVEN:
+        _EVEN[key] = torch.arange(0, 2 * n, 2, dtype=torch.int64, device=device)
+    return _EVEN[key]
 
 
 def _cond_sub(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
@@ -406,6 +410,21 @@ def elementwise(mode: int, spec: FieldSpec, a: torch.Tensor,
     flat = lambda t: t.reshape(-1, 1, WORDS).contiguous()  # noqa: E731
     bf = None if b is None else flat(b.expand_as(a))
     return field_op(mode, spec, flat(a), bf, exponent=exponent).reshape(a.shape)
+
+
+def mont_powers(spec: FieldSpec, base: int, n: int, device) -> torch.Tensor:
+    """[1, base, base^2, ..., base^(n-1)] as (n, 8) Montgomery words on
+    `device`, by doubling: the known powers times base^len, two launches
+    of the field kernel (its twin on the CPU) a doubling."""
+    one = const(spec, 1, device)
+    if n <= 1:
+        return one[:n]
+    p = torch.cat([one, const(spec, base, device)])
+    cur = const(spec, base * base % spec.modulus, device)
+    while p.shape[0] < n:
+        p = torch.cat([p, elementwise(MUL, spec, p, cur.expand_as(p))])
+        cur = elementwise(MUL, spec, cur, cur)
+    return p[:n]
 
 
 # ---------------------------------------------------------------------------

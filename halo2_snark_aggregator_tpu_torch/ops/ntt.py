@@ -11,9 +11,13 @@ Montgomery Fr words: the bit-reversal permutation, then k butterfly stages
 with tw_j = w^(j n / 2^(s+1)), j < 2^s), then the inverse's 1/n scale.
 Forward maps coefficients to evaluations at omega^i (in order); inverse
 maps back. The twiddles of all stages are one table of n - 1 rows (stage s
-at rows 2^s - 1 .. 2^(s+1) - 2), built on the host once per (k, inverse)
-and cached on each device. The reference's XLA-only paths (`ntt_staged`,
-`rowwise_jit`, the transpose-chain bit reversal) are not ported.
+at rows 2^s - 1 .. 2^(s+1) - 2), built on the device once per (k, inverse)
+and cached there (`device_plan`): the last stage's 2^(k-1) powers of w by
+doubling through the field kernel, each earlier stage a stride of them,
+and the bit reversal as tensor ops. The reference builds the table on the
+host (`_plan`, kept as the twin: the two agree word for word). The
+reference's XLA-only paths (`ntt_staged`, `rowwise_jit`, the
+transpose-chain bit reversal) are not ported.
 
 The stages run in passes (`pass_bounds`): the first loads its rows in
 bit-reversed order and runs stages 0 .. r-1 on contiguous tiles of 2^r
@@ -41,15 +45,27 @@ from . import field as fo
 FR = fo.FR
 
 
+def _root(k: int, inverse: bool) -> int:
+    """w: omega of the 2^k domain, or its inverse."""
+    omega = omega_for_k(k)
+    return pow(omega, -1, R) if inverse else omega
+
+
+def _n_inv_words(k: int, inverse: bool):
+    """n^-1 as uint32[8] Montgomery words for an inverse, else None."""
+    if not inverse:
+        return None
+    return fo.ints_to_words([FR.to_mont_int(pow(1 << k, -1, R))])[0]
+
+
 @functools.lru_cache(maxsize=32)
 def _plan(k: int, inverse: bool):
-    """(rev int64[n], twiddles uint32[n - 1, 8] Montgomery words, n^-1 as
-    uint32[8] Montgomery words or None). Stage s has 2^s powers of
-    w^(n / 2^(s+1)), w = omega or omega^-1, at rows 2^s - 1 .. 2^(s+1) - 2."""
+    """The host plan, the twin of `device_plan`'s tables: (rev int64[n],
+    twiddles uint32[n - 1, 8] Montgomery words, n^-1 as uint32[8]
+    Montgomery words or None). Stage s has 2^s powers of w^(n / 2^(s+1)),
+    w = omega or omega^-1, at rows 2^s - 1 .. 2^(s+1) - 2."""
     n = 1 << k
-    omega = omega_for_k(k)
-    if inverse:
-        omega = pow(omega, -1, R)
+    omega = _root(k, inverse)
     idx = np.arange(n, dtype=np.int64)
     rev = np.zeros(n, dtype=np.int64)
     for b in range(k):
@@ -65,22 +81,35 @@ def _plan(k: int, inverse: bool):
             pw.append(cur)
             cur = cur * w_len % R
         length <<= 1
-    n_inv = (fo.ints_to_words([FR.to_mont_int(pow(n, -1, R))])[0]
-             if inverse else None)
-    return rev, fo.ints_to_words(pw), n_inv
+    return rev, fo.ints_to_words(pw), _n_inv_words(k, inverse)
+
+
+def device_tables(k: int, inverse: bool, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rev int64 (n,), twiddles int32 (n - 1, 8)) built on `device`, equal
+    to `_plan`'s: the powers w^i, i < n / 2, by doubling (2 (k - 2)
+    launches of the field kernel); stage s is every 2^(k-1-s)-th of them
+    (w^(j n / 2^(s+1)) = w^(j 2^(k-1-s))); rev[i] is i with its k bits
+    reversed."""
+    n = 1 << k
+    last = fo.mont_powers(FR, _root(k, inverse), n // 2, device)
+    tw = torch.cat([last[:: 1 << (k - 1 - s)] for s in range(k)])
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(k):
+        rev |= ((idx >> b) & 1) << (k - 1 - b)
+    return rev, tw
 
 
 _DEVICE_PLANS: dict = {}
 
 
 def device_plan(k: int, inverse: bool, device):
-    """`_plan` with rev and the twiddle table as tensors on `device`
-    (cached: 2 MB of twiddles at k = 16)."""
+    """(rev, twiddles, n^-1 words): `device_tables` on `device` (cached: 2
+    MB of twiddles at k = 16, 128 MiB at k = 22) and n^-1 as a host array."""
     key = (k, inverse, str(device))
     if key not in _DEVICE_PLANS:
-        rev, tw, n_inv = _plan(k, inverse)
-        _DEVICE_PLANS[key] = (torch.from_numpy(rev).to(device),
-                              fo.to_tensor(tw, device), n_inv)
+        _DEVICE_PLANS[key] = (*device_tables(k, inverse, device),
+                              _n_inv_words(k, inverse))
     return _DEVICE_PLANS[key]
 
 

@@ -30,8 +30,15 @@ their helpers). The pipeline is the reference's:
 
 Bit-exact contract: `create_proof_accel` writes the same bytes as
 prover/prove.create_proof (same transcript layout, same blinding RNG call
-order). The reference's spill mode (host-resident polynomials for k = 22)
-is not ported.
+order), at K=16 and at the K=18 131-column fixture alike.
+
+The reference's spill mode (`spill=`: polynomials held on the host, the
+extension cache capped, for a 16 GB TPU) is not ported, since nothing
+comes near the card's memory: on one H100 80GB the K=18 131-column proof
+peaks at 10.9 GB allocated (its quotient stage: the 321 stacked columns
+and their coset extension), and the k=22 aggregator, scaled from that by
+bytes per quotient column and row to its 44 columns, is estimated at
+23.9 GB; the rule ports it above 72 GB (prove.py `working_set`).
 """
 
 from __future__ import annotations
@@ -120,15 +127,7 @@ def _bcast(scalar_mont: torch.Tensor, n: int) -> torch.Tensor:
 
 def mont_powers(base: int, n: int, device) -> torch.Tensor:
     """[1, base, base^2, ..., base^(n-1)] Montgomery, by log-doubling."""
-    one = mont_scalar(1, device)
-    if n == 1:
-        return one
-    p = torch.cat([one, mont_scalar(base, device)])
-    cur = mont_scalar(base * base % R, device)
-    while p.shape[0] < n:
-        p = torch.cat([p, m_mul(p, cur.expand_as(p))])
-        cur = m_mul(cur, cur)
-    return p[:n]
+    return fo.mont_powers(FR, base, n, device)
 
 
 def _sum_mont_host(v: torch.Tensor) -> int:
@@ -192,21 +191,29 @@ def ntt_many(cols, k: int, inverse: bool, coset=None) -> list:
 
 class StageTimer:
     """Exclusive seconds per named span: a nested span's time is not
-    counted in its parent. Disabled, a span costs nothing and never
-    synchronizes."""
+    counted in its parent. On the card, `peak_bytes[name]` is the most
+    memory allocated while the span was innermost (the allocator's peak,
+    read and reset at each boundary). Disabled, a span costs nothing and
+    never synchronizes."""
 
     def __init__(self, device, enabled: bool):
         self.device = device
         self.enabled = enabled
         self.seconds: dict[str, float] = {}
+        self.peak_bytes: dict[str, int] = {}
         self._stack: list[str] = []
         self._t = 0.0
 
     def _mark(self) -> None:
         dv.synchronize(self.device)
         now = time.perf_counter()
+        peak = dv.peak_bytes(self.device)
         if self._stack:
-            self.seconds[self._stack[-1]] += now - self._t
+            name = self._stack[-1]
+            self.seconds[name] += now - self._t
+            if peak is not None:
+                self.peak_bytes[name] = max(self.peak_bytes.get(name, 0), peak)
+        dv.reset_peak(self.device)
         self._t = now
 
     @contextlib.contextmanager

@@ -6,6 +6,9 @@ Port of halo2_snark_aggregator_tpu/prover/srs.py (`fixed_base_msm`,
 [tau^i] G1 comes from the same tau as `ParamsKZG.unsafe_setup` and holds
 the same points:
 
+  * the scalars tau^i are built on the device by doubling through the
+    field kernel (`tau_powers_words`; the host list `tau_powers` is its
+    twin);
   * 8-bit windows over 256-bit scalars give 32 digit positions;
   * a host table T[j][d] = d 2^(8j) G (32 x 256 points) lives on the device;
   * one launch (ops/curve.fixed_base) sums each scalar's 32 table points,
@@ -65,13 +68,6 @@ def g1_table(device) -> torch.Tensor:
     return torch.stack(cv.from_affine_ints(flat, device), dim=1)
 
 
-def fixed_base_msm(scalars_std: np.ndarray, table: torch.Tensor) -> torch.Tensor:
-    """[s_i G for each scalar] as (n, 3, 8) projective words on the table's
-    device: scalars_std uint32 (n, 8) standard-form words, one launch of the
-    fixed-base kernel."""
-    return cv.fixed_base(fo.to_tensor(scalars_std, table.device), table)
-
-
 SEED = b"halo2-snark-aggregator-tpu"
 
 
@@ -81,12 +77,22 @@ def _tau_for(k: int, seed: bytes) -> int:
 
 
 def tau_powers(k: int, seed: bytes = SEED) -> list[int]:
-    """[tau^i for i < 2^k], the SRS's scalars."""
+    """[tau^i for i < 2^k], the SRS's scalars, on the host (the twin of
+    `tau_powers_words`)."""
     tau = _tau_for(k, seed)
     taus = [1] * (1 << k)
     for i in range(1, 1 << k):
         taus[i] = taus[i - 1] * tau % ff.R
     return taus
+
+
+def tau_powers_words(k: int, device, seed: bytes = SEED) -> torch.Tensor:
+    """`tau_powers` as (2^k, 8) int32 standard-form words built on
+    `device`: the Montgomery powers by doubling (field kernel), then one
+    product by 1. At k = 22 the host list is 4M Python products."""
+    mont = fo.mont_powers(fo.FR, _tau_for(k, seed), 1 << k, device)
+    one = fo.const(fo.FR, 1, device, mont=False)
+    return fo.elementwise(fo.MUL, fo.FR, mont, one.expand_as(mont))
 
 
 def unsafe_setup_accel(k: int, seed: bytes = SEED,
@@ -97,7 +103,7 @@ def unsafe_setup_accel(k: int, seed: bytes = SEED,
     dev = dv.resolve(device)
     tau = _tau_for(k, seed)
     n = 1 << k
-    proj = fixed_base_msm(fo.ints_to_words(tau_powers(k, seed)), g1_table(dev))
+    proj = cv.fixed_base(tau_powers_words(k, dev, seed), g1_table(dev))
     g_dev = cv.normalize_affine(proj)
 
     # Lagrange-basis prefix for (small) instance-column commitments:

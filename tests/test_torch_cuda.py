@@ -325,6 +325,7 @@ def test_ntt_scale_and_transform(cuda):
     assert "ntt_scale" not in build.LAUNCHES
     for k in (10, 12):
         x = _rand(fo.FR, (2, 1 << k), 14, cuda)
+        pn.device_plan(k, True, x.device)  # built once, by the field kernel
         before = dict(build.LAUNCHES)
         got = pn.ntt_batch(x, k, inverse=True)
         assert {n: c - before[n] for n, c in build.LAUNCHES.items()
@@ -352,3 +353,21 @@ def test_zkevm_k7_proof_on_card(cuda):
         proofs.append(accel.create_proof_accel(apk, ap, [c], [c.instances()],
                                                PoseidonWrite(), seed=3))
     assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("k", [16, 18])
+def test_ntt_plan_built_on_card_equals_host_plan(cuda, k):
+    """The twiddles built by doubling through the field kernel and the bit
+    reversal as tensor ops equal the host plan word for word."""
+    for inverse in (False, True):
+        rev, tw = pn.device_tables(k, inverse, cuda)
+        h_rev, h_tw, _ = pn._plan(k, inverse)
+        assert np.array_equal(rev.cpu().numpy(), h_rev)
+        assert np.array_equal(fo.to_numpy(tw), h_tw)
+
+
+def test_tau_powers_words_on_card(cuda):
+    k = 18
+    got = srs.tau_powers_words(k, cuda)
+    want = fo.to_tensor(fo.ints_to_words(srs.tau_powers(k)), cuda)
+    assert torch.equal(got, want)

@@ -143,3 +143,12 @@ def test_unsafe_setup_accel_matches_reference_k3():
     assert params.g_lagrange == ref.g_lagrange
     for got, want in ((params.g2, ref.g2), (params.s_g2, ref.s_g2)):
         assert [(c.c0, c.c1) for c in got] == [(c.c0, c.c1) for c in want]
+
+
+@pytest.mark.parametrize("k", [1, 5, 9])
+def test_tau_powers_words_match_host_list(k):
+    """The SRS's scalars built by doubling through the field kernel (its twin
+    here) equal the host list `tau_powers`, in standard form."""
+    got = srs.tau_powers_words(k, "cpu")
+    assert got.shape == (1 << k, 8) and got.dtype == torch.int32
+    assert fo.words_to_ints(got) == srs.tau_powers(k)

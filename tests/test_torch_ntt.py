@@ -67,6 +67,26 @@ def test_plan_matches_reference():
             assert n_inv is None and jn_inv is None
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("k", [4, 8, 12])
+def test_device_plan_equals_host_plan(k, inverse):
+    """The plan built by `device_tables` (powers by doubling through the
+    field kernel's twin here, the bit reversal as tensor ops) equals the
+    host plan word for word, and `device_plan` caches it beside n^-1."""
+    rev, tw = pn.device_tables(k, inverse, "cpu")
+    h_rev, h_tw, h_inv = pn._plan(k, inverse)
+    assert rev.dtype == torch.int64 and tw.dtype == torch.int32
+    np.testing.assert_array_equal(rev.numpy(), h_rev)
+    np.testing.assert_array_equal(fo.to_numpy(tw), h_tw)
+    d_rev, d_tw, d_inv = pn.device_plan(k, inverse, torch.device("cpu"))
+    assert torch.equal(d_rev, rev) and torch.equal(d_tw, tw)
+    assert pn.device_plan(k, inverse, torch.device("cpu"))[1] is d_tw
+    if inverse:
+        np.testing.assert_array_equal(d_inv, h_inv)
+    else:
+        assert d_inv is None and h_inv is None
+
+
 @pytest.mark.parametrize("half", [1, 4, 16])
 def test_butterfly_twin_is_one_stage(half):
     """butterfly_plain on (n, 8) words = lo = u + v tw, hi = u - v tw per
@@ -190,7 +210,9 @@ def test_ntt_batch_kernel_split(k, stages, monkeypatch):
 
 def test_pass_bounds_at_prover_sizes():
     assert pn.pass_bounds(16) == [(0, 8), (8, 16)]
+    assert pn.pass_bounds(18) == [(0, 9), (9, 18)]
     assert pn.pass_bounds(20) == [(0, 10), (10, 20)]
+    assert pn.pass_bounds(22) == [(0, 8), (8, 15), (15, 22)]
     assert pn.pass_bounds(8) == [(0, 8)]
     assert pn.pass_bounds(16, r=11) == [(0, 11), (11, 16)]
     assert pn.pass_bounds(6, r=6) == [(0, 6)]

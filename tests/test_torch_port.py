@@ -165,9 +165,27 @@ def test_cache_writes_atomically(tmp_path, monkeypatch):
 
 
 def test_k16_fixture_files():
-    proofs = fixtures.load_proofs(16, fixtures.K16_FINGERPRINT, 4)
+    wl = fixtures.workload(16)
+    proofs = fixtures.load_proofs(16, wl.fingerprint, 4)
     assert len(proofs) == 4
     assert len({len(p) for p, _ in proofs}) == 1
     with open(fixtures.FIXTURE_DIR /
-              f"zkevm_proof_k16_{fixtures.K16_FINGERPRINT}_0.json") as f:
+              f"zkevm_proof_k16_{wl.fingerprint}_0.json") as f:
         assert bytes.fromhex(json.load(f)["proof"]) == proofs[0][0]
+
+
+def test_fixture_workloads():
+    """Each workload names its committed proofs; K=18's key is the
+    131-column circuit (43 groups), its one proof for one instance column."""
+    assert sorted(fixtures.WORKLOADS) == [16, 18]
+    for k, wl in fixtures.WORKLOADS.items():
+        assert wl.k == k
+        proofs = wl.load_proofs()
+        assert len(proofs) == wl.proofs
+        for p, inst in proofs:
+            assert len(inst) == 1 and len(p) > 0
+        c = wl.circuit(2)
+        assert (c.K, c.seed, c.n_groups) == (k, 2, wl.n_groups)
+    assert fixtures.workload(18).n_groups == 43
+    with pytest.raises(ValueError, match="no fixture workload"):
+        fixtures.workload(17)
