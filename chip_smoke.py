@@ -57,13 +57,34 @@ Phases (each prints one line; any failure raises and exits nonzero):
      the native MSM), 9g the sponge chain of the K=18 verifier; 9h the
      batched verifier: batch 2 == the value oracle, batch 128 (the proof
      tiled as the bench tiles it) passes and is timed, a flipped byte fails;
+     the hybrid chips at their default `device_min` over 2 K=18 proofs ==
+     the value oracle, their large MSM on the card, both timed;
  10. k=22: the SRS built on the card, cached and loaded back, a few rows
-     against the host g1_mul; one commit of 2^22 random scalars against the
-     native host Pippenger, its split by phase and its largest row load;
-     the plan built on the card == the host plan, and one 2^22 vector
-     through the three-pass transform == its twin, inverse(forward) == x.
-Then a JSON line of the K=18 proof's and verifier's numbers and the 2^22
-commit's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
+     against the host g1_mul, the fixed-base kernel over its 2^22 tau
+     powers against its twin (on a slice); one commit of 2^22 random
+     scalars against the native host Pippenger, its split by phase and its
+     largest row load; on that commit's plan the accumulate and reduce
+     kernels against their twins on the card over its rows (the one with
+     the most adds, the first, the last; the accumulate's twin replayed as
+     a CUDA graph, itself held against the eager twin), both timed; the NTT
+     plan built on the card == the host plan, and one 2^22 vector through the three-pass transform == its twin,
+     inverse(forward) == x;
+ 11. the SDK (sdk/harness.py, sdk/cli.py) on the card: 11a `msm_ints`
+     against the native g1_msm at n = 2^4..2^16, equal and timed, the
+     crossover (the hybrid chips' `device_min`); 11b
+     `verify_aggregation_proofs_in_chip` over `make_device_chips` with
+     every multi_exp on the card over the four K=16 proofs == the value
+     oracle's pair, then the CLI's sample_setup, sample_run and
+     verify_check on a fresh folder under a temp dir == the value pair
+     (the demo's MSM sizes beside `device_min`: they stay on the host); 11c verify_setup at agg_k=22 (seconds, keygen spans and peak bytes,
+     the vk's fingerprint); 11d verify_run at agg_k=22 (the same vk; proof
+     bytes, seconds, spans, commit split, peak bytes beside the estimate;
+     the aggregator's quotient program over 4,096 rows, its 44-column
+     transform and the field kernel at 2^22 against their twins); 11e
+     verify_check_outer passes, a flipped byte fails; 11f the CLI's
+     verify_check with the stored outer proof.
+Then a JSON line of the K=18 proof's and verifier's numbers, the 2^22
+commit's and the SDK's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
 path; their registers and spills from ptxas and machine instructions; for
@@ -72,7 +93,9 @@ for the fixed-base sum, the padd tree's time; for the transform, one
 vector's times beside the batch's and the inverse's, and the inverse's
 extra time, which holds the 1/n epilogue; for the row
 program, its size; under `k18`, each kernel's launches on the K=18
-paths and its check at the K=18 shape), the nvidia-smi line, and the
+paths and its check at the K=18 shape; under `sdk`, its launches on the
+SDK's paths of phases 10-11 and its check at the k=22 aggregator's
+shape), the nvidia-smi line, and the
 final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
@@ -139,7 +162,17 @@ PATH_KERNELS = {
 }
 PATH_KERNELS.update(setup_keygen_k18=PATH_KERNELS["setup_keygen"],
                     prove_k18=PATH_KERNELS["prove"],
-                    verify_k18=PATH_KERNELS["verify"])
+                    verify_k18=PATH_KERNELS["verify"],
+                    hybrid_k18=("msm_accumulate", "msm_reduce"),
+                    # phase 10-11: the SDK's paths (the aggregator at k=22)
+                    setup_k22=("fixed_base", "field"),
+                    hybrid_k16=("msm_accumulate", "msm_reduce"),
+                    sdk_sample=PATH_KERNELS["prove"],
+                    verify_setup_k22=("field", "ntt_transform",
+                                      "msm_accumulate", "msm_reduce"),
+                    verify_run_k22=PATH_KERNELS["prove"])
+AGG_K = 22
+CROSSOVER_REPS = 3
 
 
 def phase(name: str, msg: str) -> None:
@@ -270,15 +303,17 @@ def rand_fr_bulk(shape, rng, device) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def value_oracle(params, vk, proofs, insts):
-    """(w_x, w_g) of the host value-context aggregation verifier."""
+def value_oracle(params, vk, proofs, insts, chips=None):
+    """(w_x, w_g) of the host value-context aggregation verifier, or of the
+    same verifier on `chips` (`make_device_chips`' four) when given."""
     from halo2_snark_aggregator_tpu_torch.arith.value import ValueContext, ValueEccChip
     from halo2_snark_aggregator_tpu_torch.protocol import verify as pv
     from halo2_snark_aggregator_tpu_torch.protocol.transcript import PoseidonTranscriptRead
 
-    ctx = ValueContext()
-    pchip = ValueEccChip()
-    nchip = schip = pchip.scalar_chip
+    if chips is None:
+        pchip = ValueEccChip()
+        chips = (ValueContext(), pchip.scalar_chip, pchip.scalar_chip, pchip)
+    ctx, nchip, schip, pchip = chips
     pdata = [pv.ProofData(instances=[inst],
                           transcript=PoseidonTranscriptRead(p, ctx, nchip),
                           key=f"p{i}")
@@ -288,7 +323,8 @@ def value_oracle(params, vk, proofs, insts):
     w_x, w_g, *_rest, ok = pv.verify_aggregation_proofs_in_chip(
         ctx, nchip, schip, pchip, [cp], agg)
     if not ok:
-        raise AssertionError("value oracle rejected the fixture proofs")
+        raise AssertionError("the aggregation verifier rejected the fixture "
+                             "proofs")
     return w_x, w_g
 
 
@@ -629,19 +665,22 @@ def check_padd(dev, rng, params, bound, results):
 
 
 def check_fixed_base(dev, sw, table, srs_affine, tree_times, bound, results,
-                     tag="4d fixed_base"):
+                     tag="4d fixed_base", twin_rows=None):
     """The fixed-base kernel over a setup's tau powers against its twin (on
-    the card) word for word, its normalised sum against `srs_affine` (the
-    padd tree's at K=16, the setup's SRS at K=18); on special scalars against the
-    twin; timed, at K=16 beside the tree (`tree_times`, else None)."""
+    the card) word for word (over the first `twin_rows` scalars, default
+    all: each scalar's sum is its own), its normalised sum against
+    `srs_affine` (the padd tree's at K=16, the setup's SRS at K=18 and
+    k=22); on special scalars against the twin; timed, at K=16 beside the
+    tree (`tree_times`, else None)."""
     from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
     from halo2_snark_aggregator_tpu_torch.ops import curve as cv
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
 
     n = sw.shape[0]
+    m = n if twin_rows is None else twin_rows
     got = cv.fixed_base(sw, table)
-    want, plain_ms = once_ms(lambda: cv.fixed_base_plain(sw, table))
-    err = max_abs_err(got, want)
+    want, plain_ms = once_ms(lambda: cv.fixed_base_plain(sw[:m], table))
+    err = max_abs_err(got[:m], want)
     if not torch.equal(cv.normalize_affine(got), srs_affine):
         raise AssertionError("fixed-base sums differ from the SRS")
     special = fo.to_tensor(fo.ints_to_words(
@@ -666,20 +705,20 @@ def check_fixed_base(dev, sw, table, srs_affine, tree_times, bound, results,
         tree = (f"; the padd tree with its gather {tree_ms:.4f} ms device, "
                 f"{tree_launch_ms:.4f} ms events")
         extra = dict(tree_ms=tree_ms, tree_launch_ms=tree_launch_ms)
-    phase(tag, f"exact against its twin over the {n} K={k} tau powers "
-          f"(normalised == the SRS) and on 5 special scalars (0, 1, r - 1, "
+    phase(tag, f"exact against its twin over {m} of the {n} K={k} tau "
+          f"powers (normalised == the SRS) and on 5 special scalars (0, 1, r - 1, "
           f"zero digits inside, all digits 0xff); {adds} mixed adds; one "
           f"launch {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms events "
-          f"(plain {plain_ms:.1f} ms){tree}")
+          f"(plain {plain_ms:.1f} ms over {m}){tree}")
     results["fixed_base"] = dict(
-        max_abs_err=err, plain_ms=plain_ms, **t, **extra,
+        max_abs_err=err, plain_ms=plain_ms, plain_rows=m, **t, **extra,
         shape=f"{n} scalars (the K={k} SRS's tau powers), {adds} mixed adds",
         bound=bound(n * 32 + table.numel() * 4 + n * 96,
                     adds * MIXED_ADD_MULS * MONT_MUL_IMAD))
 
 
 def check_ntt(dev, rng, bound, results, batch: int, k: int = NTT_K,
-              twin_cols=None, tag="4e ntt"):
+              twin_cols=None, tag="4e ntt", check_plan=True):
     """The transform kernel at 2^k points: the plan built on the card equals
     the host plan word for word (twiddles and bit reversal, both
     directions); one vector, forward and inverse, and a batch of `batch`
@@ -688,7 +727,8 @@ def check_ntt(dev, rng, bound, results, batch: int, k: int = NTT_K,
     `twin_cols`, by default every column, 8 at a time); forward == native
     fr_ntt;
     inverse(forward) == input. An inverse makes one launch a pass and no
-    other (its last pass applies 1/n). Timed: each forward and inverse, the
+    other (its last pass applies 1/n). `check_plan=False` skips the plan
+    check where an earlier phase held the plan at this k. Timed: each forward and inverse, the
     batch's forward also without the coset factor; the inverse's device
     time less that forward's reads the 1/n epilogue together with whatever
     the pass's stalls hide of it."""
@@ -699,7 +739,7 @@ def check_ntt(dev, rng, bound, results, batch: int, k: int = NTT_K,
     from halo2_snark_aggregator_tpu_torch.prover.domain import omega_for_k
 
     n = 1 << k
-    for inverse in (False, True):
+    for inverse in (False, True) if check_plan else ():
         rev, tw, _n_inv = pn.device_plan(k, inverse, dev)
         h_rev, h_tw, _ = pn._plan(k, inverse)
         if not (np.array_equal(rev.cpu().numpy(), h_rev)
@@ -756,7 +796,9 @@ def check_ntt(dev, rng, bound, results, batch: int, k: int = NTT_K,
     _rev, _tw, n_inv = pn.device_plan(k, True, dev)
     _out, scale_plain_ms = once_ms(lambda: pn.scale_plain(xb[cols], n_inv))
     scale_ms = tbi["ms"] - tbf["ms"]
-    phase(tag, f"k={k}: the plan built on the card == the host plan; the "
+    plan = ("the plan built on the card == the host plan" if check_plan
+            else "the plan as held in phase 10")
+    phase(tag, f"k={k}: {plan}; the "
           f"transform ({passes} launches, passes "
           f"{pn.pass_bounds(k)}) exact against its twin at b=1 forward and "
           f"inverse and at b={batch} forward with a coset factor and inverse "
@@ -856,36 +898,39 @@ def check_program(dev, rng, vk, bound, results, slice_rows=None,
         slots=prog.n_slots, columns=len(keys), smem_bytes=smem)
 
 
-def check_elementwise(dev, rng, n: int, bound, results, tag: str):
+def check_elementwise(dev, rng, n: int, bound, results, tag: str,
+                      twin_rows=None):
     """The field kernel's mul, add and sub on (n, 8) Fr polynomials against
-    its twin on the card, word for word; the mul timed."""
+    its twin on the card, word for word (over the first `twin_rows` rows,
+    default all: each row is its own); the mul timed."""
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
 
+    m = n if twin_rows is None else twin_rows
     pa, pb = rand_fr_bulk((2, n), rng, dev).unbind(0)
     errs = []
     for mode in (fo.MUL, fo.ADD, fo.SUB):
-        out_p = torch.empty((n, 1, 8), dtype=torch.int32, device=dev)
-        fo.field_op_plain(mode, fo.FR, n, pa.reshape(n, 1, 8),
-                          pb.reshape(n, 1, 8), None, None, False, out_p, None,
-                          None)
-        errs.append(max_abs_err(fo.elementwise(mode, fo.FR, pa, pb),
-                                out_p.reshape(n, 8)))
+        out_p = torch.empty((m, 1, 8), dtype=torch.int32, device=dev)
+        fo.field_op_plain(mode, fo.FR, m, pa[:m].reshape(m, 1, 8),
+                          pb[:m].reshape(m, 1, 8), None, None, False, out_p,
+                          None, None)
+        errs.append(max_abs_err(fo.elementwise(mode, fo.FR, pa, pb)[:m],
+                                out_p.reshape(m, 8)))
     err = max(errs)
     if err:
         raise AssertionError(f"field kernel differs from its twin: {err}")
 
     def run_p():
-        out = torch.empty((n, 1, 8), dtype=torch.int32, device=dev)
-        fo.field_op_plain(fo.MUL, fo.FR, n, pa.reshape(n, 1, 8),
-                          pb.reshape(n, 1, 8), None, None, False, out, None,
+        out = torch.empty((m, 1, 8), dtype=torch.int32, device=dev)
+        fo.field_op_plain(fo.MUL, fo.FR, m, pa[:m].reshape(m, 1, 8),
+                          pb[:m].reshape(m, 1, 8), None, None, False, out, None,
                           None)
 
     t = timed(lambda: fo.elementwise(fo.MUL, fo.FR, pa, pb), "field_kernel", 20)
     plain_ms = cuda_ms(run_p, 3)
-    phase(tag, f"mul/add/sub over {n} x 8 words exact against the twin; mul "
-          f"{t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms launch (plain "
-          f"{plain_ms:.2f} ms)")
-    results["field"] = dict(max_abs_err=err, plain_ms=plain_ms, **t,
+    phase(tag, f"mul/add/sub over {n} x 8 words exact against the twin (on "
+          f"{m} rows); mul {t['ms']:.4f} ms device, {t['launch_ms']:.4f} ms "
+          f"launch (plain {plain_ms:.2f} ms over {m} rows)")
+    results["field"] = dict(max_abs_err=err, plain_ms=plain_ms, plain_rows=m, **t,
                             shape=f"mul {n} x 8 words (the prover's elementwise)",
                             bound=bound(n * 96, n * MONT_MUL_IMAD))
 
@@ -923,6 +968,7 @@ def k18_phase(dev, rng, bound, paths, read_path, results) -> None:
     (the bench's) passes, a flipped byte fails."""
     from halo2_snark_aggregator_tpu_torch import fixtures
     from halo2_snark_aggregator_tpu_torch import prove as pprove
+    from halo2_snark_aggregator_tpu_torch.arith.device_value import make_device_chips
     from halo2_snark_aggregator_tpu_torch.bench import tiled_proofs
     from halo2_snark_aggregator_tpu_torch.kernels import build
     from halo2_snark_aggregator_tpu_torch.ops import field as fo
@@ -997,6 +1043,24 @@ def k18_phase(dev, rng, bound, paths, read_path, results) -> None:
     t0 = time.perf_counter()
     oracle = value_oracle(params, vk, proofs[:2], insts[:2])
     oracle_s = time.perf_counter() - t0
+    # the hybrid chips at their default crossover: two K=18 proofs make an
+    # MSM above DEVICE_MIN, which goes to the card
+    chips = make_device_chips(dev)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    hybrid = value_oracle(params, vk, proofs[:2], insts[:2], chips)
+    hybrid_s = time.perf_counter() - t0
+    read_path("hybrid_k18")
+    ctx, pchip = chips[0], chips[3]
+    if hybrid != oracle or not pchip.device_msms:
+        raise AssertionError(f"K=18 hybrid chips: pair == value oracle "
+                             f"{hybrid == oracle}, {pchip.device_msms} MSMs on "
+                             f"the card")
+    phase("9h K=18 hybrid", f"make_device_chips (device_min "
+          f"{pchip.device_min}) over 2 K=18 proofs: pair == value oracle; "
+          f"{pchip.device_msms} of {len(ctx.msm_sizes)} multi_exps on the card "
+          f"(sizes {ctx.msm_sizes}); {hybrid_s:.3f} s against the value "
+          f"chips' {oracle_s:.3f} s")
     bv2 = BatchedVerifier(vk, params, batch=2, sample_proof=proofs[0],
                           sample_instances=insts[0], device=dev)
     w_x, w_g, ok = bv2.verify(proofs[:2], insts[:2])
@@ -1040,18 +1104,139 @@ def k18_phase(dev, rng, bound, paths, read_path, results) -> None:
           f"over {REPS + 1} verifies {paths['verify_k18']}; "
           f"flipped scalar byte of proof 5 fails; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
+    results["hybrid"] = dict(device_min=pchip.device_min,
+                             device_msms=pchip.device_msms,
+                             msm_sizes=ctx.msm_sizes, seconds=hybrid_s,
+                             value_seconds=oracle_s)
     results["verify"] = dict(proofs_per_s=bv.batch / dt, batch=bv.batch,
                              tape_records=len(bv.tape.records),
                              msm_entries_per_lane=sum(len(e) for e, _ in bv.msm_plans),
                              stages_s=bv.last_profile)
 
 
-def k22_commit(dev, rng, bound, results) -> None:
+def graphed_accumulate_plain(tx, ty, order, starts, counts, weights):
+    """`ops/msm.accumulate_plain` with its steps captured once as a CUDA
+    graph and replayed once a step: the same mixed adds in the same order,
+    each step over every lane, a lane past its count keeping its sum. The
+    eager twin launches ~1,400 small ops a step (~19 ms a step on one H100
+    80GB HBM3 at 700 W, PERF.md), and a lane of the 2^22 plan holds 8,192
+    points. (lanes, 3, 8) words."""
+    from halo2_snark_aggregator_tpu_torch.ops import curve as cv
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    dev = tx.device
+    lanes = counts.numel()
+    cnt = counts.reshape(-1).long()
+    base = (weights.long()[:, None] * order.shape[1] + starts.long()).reshape(-1)
+    flat = order.reshape(-1)
+    init = [torch.zeros(lanes, fo.WORDS, dtype=torch.int32, device=dev),
+            fo.const(fo.FQ, 1, dev).expand(lanes, fo.WORDS).clone(),
+            torch.zeros(lanes, fo.WORDS, dtype=torch.int32, device=dev)]
+    acc = [c.clone() for c in init]
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step():
+        live = cnt > t
+        idx = flat[torch.where(live, base + t, 0)].long()
+        new = cv.mixed_add(tuple(acc), tx[idx], ty[idx])
+        for c, v in zip(acc, new):
+            c.copy_(torch.where(live[:, None], v, c))
+        t.add_(1)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()                  # warm: the field constants, the allocator
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for c, c0 in zip(acc, init):
+        c.copy_(c0)
+    t.zero_()
+    for _ in range(int(cnt.max()) if lanes else 0):
+        graph.replay()
+    return torch.stack(acc, dim=1)
+
+
+def check_msm_k22(dev, table, std, want, bound, results):
+    """The accumulate and reduce kernels on the plan of phase 10's 2^22
+    commit (its scalars, the SRS table, c = 8). The kernels run over the
+    whole plan; their twins on the card over its row with the most adds,
+    its first and its last (two rows when those coincide), each word
+    equal; the row
+    combine equals the native Pippenger's total `want`. The graphed twin
+    is first held against the eager twin on those rows cut to 16 points a
+    lane. Both kernels timed with torch.profiler."""
+    from halo2_snark_aggregator_tpu_torch.ops import msm as pm
+
+    c = 8
+    tx, ty, ident = table
+    stats = {}
+    plan = pm.bucket_plan_split(std.masked_fill(ident[:, None], 0), c,
+                                stats=stats)
+    order, starts, counts, weights = plan
+    rows, nb = counts.shape
+    acc_k = pm.accumulate(tx, ty, *plan)
+    tot_k = pm.reduce(acc_k, rows, nb)
+    if pm.combine_rows_host(tot_k.unbind(1), weights, c) != want:
+        raise AssertionError("the 2^22 kernels' total differs from the native "
+                             "Pippenger")
+    sel = sorted({int(counts.sum(dim=1).argmax()), 0, rows - 1})
+    sub = (starts[sel].contiguous(), counts[sel].contiguous(),
+           weights[sel].contiguous())
+    short = (sub[0], sub[1].clamp(max=16), sub[2])
+    if not torch.equal(graphed_accumulate_plain(tx, ty, order, *short),
+                       pm.accumulate_plain(tx, ty, order, *short)):
+        raise AssertionError("the graphed accumulate twin differs from the "
+                             "eager twin")
+    acc_p, acc_plain_ms = once_ms(
+        lambda: graphed_accumulate_plain(tx, ty, order, *sub))
+    acc_sel = acc_k.view(rows, nb, 3, -1)[sel].reshape(-1, 3, acc_k.shape[-1])
+    err_a = max_abs_err(acc_sel, acc_p)
+    tot_p, red_plain_ms = once_ms(lambda: pm.reduce_plain(acc_sel, len(sel), nb))
+    err_r = max_abs_err(tot_k[sel], tot_p)
+    if err_a or err_r:
+        raise AssertionError(f"2^22 msm kernels differ from their twins: "
+                             f"{err_a}, {err_r}")
+    ta = timed(lambda: pm.accumulate(tx, ty, *plan), "accumulate_kernel", 3)
+    tr = timed(lambda: pm.reduce(acc_k, rows, nb), "reduce_kernel", 5)
+    n, adds, lanes = std.shape[0], stats["adds"], rows * nb
+    acc_bound = bound(n * 64 + order.numel() * 4 + lanes * 8 + rows * 4
+                      + lanes * 96, adds * MIXED_ADD_MULS * MONT_MUL_IMAD)
+    red_bound = bound(lanes * 96 + rows * 96,
+                      rows * 2 * (nb - 1) * FULL_ADD_MULS * MONT_MUL_IMAD)
+    depth = int(sub[1].max())
+    phase("10 msm", f"the 2^22 commit's plan ({rows} rows, {adds} adds, max "
+          f"row load {stats['max_row_load']}): the kernels' total == native "
+          f"Pippenger; rows {sel} ({len(sel) * nb} lanes, {depth} steps) word "
+          f"for word against the twins on the card (the graphed twin == the "
+          f"eager one on them cut to 16 points); accumulate {ta['ms']:.3f} ms "
+          f"device (twin {acc_plain_ms:.0f} ms over {len(sel)} rows, bound "
+          f"{acc_bound[0]:.3f} ms, {acc_bound[1]}); reduce {tr['ms']:.4f} ms "
+          f"device (twin {red_plain_ms:.1f} ms over {len(sel)} rows, bound "
+          f"{red_bound[0]:.4f} ms)")
+    results["msm_accumulate"] = dict(
+        max_abs_err=err_a, plain_ms=acc_plain_ms, plain_rows=len(sel), **ta,
+        shape=f"{n} points, c={c}, {rows} rows x {nb} buckets, {adds} mixed "
+              f"adds, max row load {stats['max_row_load']}; twin (graphed) "
+              f"over rows {sel}, {depth} steps",
+        bound=acc_bound)
+    results["msm_reduce"] = dict(
+        max_abs_err=err_r, plain_ms=red_plain_ms, plain_rows=len(sel), **tr,
+        shape=f"{rows} rows x {nb} buckets; twin over rows {sel}",
+        bound=red_bound)
+
+
+def k22_commit(dev, rng, bound, read_path, results):
     """Phase 10: the k=22 SRS (the aggregator's size) built on the card and
     cached (temp file, os.replace) then loaded, a few rows against the host
-    g1_mul; one device commit of 2^22 random scalars against the native
-    host Pippenger, its split by phase and its largest row load; the
-    2^22 transform (three passes) and its plan against their twins."""
+    g1_mul, the fixed-base kernel at its 2^22 tau powers against its twin
+    (on a slice); one device commit of 2^22 random scalars against the
+    native host Pippenger, its split by phase and its largest row load, and
+    the MSM kernels on its plan against their twins (`check_msm_k22`); the
+    2^22 transform (three passes) and its plan against their twins. Returns
+    the SRS, which phase 11 proves with."""
     import tempfile
 
     from halo2_snark_aggregator_tpu_torch import device as dv
@@ -1062,14 +1247,16 @@ def k22_commit(dev, rng, bound, results) -> None:
     from halo2_snark_aggregator_tpu_torch.ops import ntt as pn
     from halo2_snark_aggregator_tpu_torch.prover import srs
 
-    k = 22
+    k = AGG_K
     gib = 1 << 30
     with tempfile.TemporaryDirectory() as tmp:
         dv.reset_peak(dev)
+        build.reset_launches()
         t0 = time.perf_counter()
         params = srs.setup_cached_accel(k, cache_dir=tmp, device=dev)
         dv.synchronize(dev)
         setup_s = time.perf_counter() - t0
+        read_path("setup_k22")
         setup_peak = dv.peak_bytes(dev)
         t0 = time.perf_counter()
         again = srs.setup_cached_accel(k, cache_dir=tmp, device=dev)
@@ -1082,6 +1269,10 @@ def k22_commit(dev, rng, bound, results) -> None:
     got = cv.to_affine_ints(params.g_dev[rows].unbind(1))
     if got != [ff.g1_mul(ff.G1_GEN, pow(tau, i, ff.R)) for i in rows]:
         raise AssertionError("k=22 SRS rows differ from the host g1_mul")
+    kernels = results.setdefault("kernels", {})
+    check_fixed_base(dev, srs.tau_powers_words(k, dev), srs.g1_table(dev),
+                     params.g_dev, None, bound, kernels, tag="10 fixed_base",
+                     twin_rows=1 << 14)
     v = rand_fr_bulk((1 << k,), rng, dev)       # Montgomery coefficients
     params.commit_log = []
     dv.reset_peak(dev)
@@ -1099,17 +1290,17 @@ def k22_commit(dev, rng, bound, results) -> None:
         raise AssertionError("the 2^22 device commit differs from the native "
                              "host Pippenger")
     split = ", ".join(f"{p} {t * 1e3:.1f}" for p, t in rec["split_s"].items())
-    acc_bound = bound((1 << k) * 64 + rec["rows"] * 256 * 96,
-                      rec["adds"] * MIXED_ADD_MULS * MONT_MUL_IMAD)
     phase("10 k=22 commit", f"SRS 2^{k} on the card in {setup_s:.1f} s (peak "
           f"{setup_peak / gib:.2f} GiB; cache written and loaded back in "
           f"{load_s:.1f} s, equal; rows {rows} == host g1_mul); one device "
           f"commit of 2^{k} random scalars == native host Pippenger "
           f"({host_s:.1f} s): {rec['seconds']:.3f} s, split ms: {split}; max "
           f"bucket load {rec['max_load']}, max row load {rec['max_row_load']} "
-          f"(target {rec['target']}), {rec['rows']} rows, {rec['adds']} adds "
-          f"(the accumulate's bound {acc_bound[0]:.1f} ms, {acc_bound[1]}); "
+          f"(target {rec['target']}), {rec['rows']} rows, {rec['adds']} adds; "
           f"peak {commit_peak / gib:.2f} GiB")
+    check_msm_k22(dev, params.table(), std, host, bound, kernels)
+    del std
+    torch.cuda.empty_cache()
     # the transform at 2^22 runs three passes (8 + 7 + 7 stages)
     for inverse in (False, True):
         rev, tw, _n_inv = pn.device_plan(k, inverse, dev)
@@ -1138,7 +1329,268 @@ def k22_commit(dev, rng, bound, results) -> None:
         seconds=rec["seconds"], split_s=rec["split_s"],
         max_load=rec["max_load"], max_row_load=rec["max_row_load"],
         rows=rec["rows"], adds=rec["adds"], target=rec["target"],
-        peak_bytes=commit_peak, host_s=host_s, accumulate_bound_ms=acc_bound[0])
+        peak_bytes=commit_peak, host_s=host_s)
+    return params
+
+
+def crossover(dev, rng, points, results) -> None:
+    """Phase 11a: `msm_ints` on the card against the native `g1_msm` at
+    n = 2^4 .. 2^16 (the K=16 SRS's points, random scalars), equal at each
+    n, both timed on the host clock (the best of CROSSOVER_REPS, each call
+    ends with the point on the host). The crossover is the least n from
+    which the card is faster at every larger n (None if it never is),
+    printed beside the chips' default `DEVICE_MIN`."""
+    from halo2_snark_aggregator_tpu_torch.arith.device_value import DEVICE_MIN
+    from halo2_snark_aggregator_tpu_torch.ff import bn254 as ff
+    from halo2_snark_aggregator_tpu_torch.ops import msm as pm
+
+    scal = rand_ints(ff.R, len(points), rng)
+    pm.msm_ints(points[:16], scal[:16], 8, dev)  # warm
+    rows = []
+    for e in range(4, 17):
+        n = 1 << e
+        host_t, dev_t = [], []
+        for _ in range(CROSSOVER_REPS):
+            t0 = time.perf_counter()
+            want = ff.g1_msm(points[:n], scal[:n])
+            host_t.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got = pm.msm_ints(points[:n], scal[:n], 8, dev)
+            dev_t.append(time.perf_counter() - t0)
+            if got != want:
+                raise AssertionError(f"msm_ints differs from the native g1_msm "
+                                     f"at n={n}")
+        rows.append((n, min(host_t) * 1e3, min(dev_t) * 1e3))
+    cross = None
+    for n, host_ms, dev_ms in reversed(rows):
+        if dev_ms >= host_ms:
+            break
+        cross = n
+    phase("11a crossover", "msm_ints on the card == native g1_msm at every n; "
+          "best ms of %d (n: native / card): " % CROSSOVER_REPS + ", ".join(
+              f"{n}: {h:.3f} / {d:.3f}" for n, h, d in rows)
+          + f"; the card is faster from n = {cross} (DEVICE_MIN "
+          f"{DEVICE_MIN})")
+    results["crossover"] = dict(
+        device_min=cross, rows=[dict(n=n, native_ms=h, card_ms=d)
+                                for n, h, d in rows])
+
+
+def store_value_pair(specs, store):
+    """((w_x, w_g), its MSM sizes) of the value-context aggregation
+    verifier over a folder's target proofs: the oracle of the SDK's
+    verify_check."""
+    from halo2_snark_aggregator_tpu_torch.arith.value import ValueContext, ValueEccChip
+    from halo2_snark_aggregator_tpu_torch.protocol import verify as pv
+    from halo2_snark_aggregator_tpu_torch.protocol.transcript import PoseidonTranscriptRead
+
+    ctx = ValueContext()
+    pchip = ValueEccChip()
+    nchip = schip = pchip.scalar_chip
+    circuits = []
+    for spec in specs:
+        vk, _cols = store.read_target_vkey(spec.name)
+        pdata = [pv.ProofData(
+            instances=[store.read_target_instance(spec.name, i)],
+            transcript=PoseidonTranscriptRead(
+                store.read_target_proof(spec.name, i), ctx, nchip),
+            key=f"{spec.name}_{i}") for i in range(spec.n_proofs)]
+        circuits.append(pv.CircuitProof(
+            name=spec.name, vk=vk, params=store.read_target_params(spec.name),
+            proofs=pdata))
+    w_x, w_g, *_rest, ok = pv.verify_aggregation_proofs_in_chip(
+        ctx, nchip, schip, pchip, circuits, PoseidonTranscriptRead(b"", ctx, nchip))
+    if not ok:
+        raise AssertionError("the value oracle rejected the folder's proofs")
+    return (w_x, w_g), ctx.msm_sizes
+
+
+def sdk_phase(dev, rng, bound, paths, read_path, params16, vk16, uniq,
+              want16, params22, estimate_bytes, results) -> None:
+    """Phase 11: the SDK on the card. 11a the hybrid chips' crossover; 11b
+    `verify_aggregation_proofs_in_chip` over `make_device_chips` with every
+    MSM on the card on the four K=16 proofs (== the value oracle's pair),
+    then the CLI's sample_setup, sample_run and verify_check on a fresh
+    folder under a temp dir (== the value pair); 11c verify_setup at
+    agg_k=22; 11d verify_run at agg_k=22 (the same vk; the proof's spans,
+    commit split and peak bytes beside the estimate; the aggregator's
+    quotient program, transform and field kernel against their twins);
+    11e verify_check_outer passes and fails a flipped byte; 11f the CLI's
+    verify_check with the stored outer proof."""
+    import tempfile
+
+    from halo2_snark_aggregator_tpu_torch import device as dv
+    from halo2_snark_aggregator_tpu_torch import fixtures
+    from halo2_snark_aggregator_tpu_torch.arith.device_value import make_device_chips
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.protocol.queryplan import (
+        query_plan, rotation_sets)
+    from halo2_snark_aggregator_tpu_torch.prover import quotient_program
+    from halo2_snark_aggregator_tpu_torch.prover.accel import StageTimer
+    from halo2_snark_aggregator_tpu_torch.sdk import cli, harness
+    from halo2_snark_aggregator_tpu_torch.utils.store import FolderStore
+
+    gib = 1 << 30
+    out = results.setdefault("sdk", {})
+    crossover(dev, rng, params16.g_host_points(), out)
+
+    # 11b: every multi_exp of the K=16 aggregation on the card
+    build.reset_launches()
+    chips = make_device_chips(dev, device_min=0)
+    t0 = time.perf_counter()
+    pair = value_oracle(params16, vk16, [p for p, _ in uniq],
+                        [i for _, i in uniq], chips)
+    hybrid_s = time.perf_counter() - t0
+    read_path("hybrid_k16")
+    ctx, pchip = chips[0], chips[3]
+    if pair != want16:
+        raise AssertionError("hybrid chips: the pair differs from the value "
+                             "oracle's")
+    n_msm = pchip.device_msms
+    if not n_msm or n_msm != len(ctx.msm_sizes) or \
+            paths["hybrid_k16"]["msm_accumulate"] != n_msm:
+        raise AssertionError(f"{n_msm} device MSMs of {len(ctx.msm_sizes)}, "
+                             f"{paths['hybrid_k16']['msm_accumulate']} "
+                             f"accumulate launches")
+    phase("11b hybrid", f"verify_aggregation_proofs_in_chip over "
+          f"make_device_chips(device_min=0) on the {len(uniq)} K=16 proofs: "
+          f"pair == value oracle; {n_msm} of {len(ctx.msm_sizes)} multi_exps "
+          f"on the card (sizes {sorted(set(ctx.msm_sizes))}); {hybrid_s:.2f} s")
+    out["hybrid"] = dict(device_msms=n_msm, msm_sizes=ctx.msm_sizes,
+                         seconds=hybrid_s)
+
+    specs = cli.demo_specs("simple")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = str(Path(tmp) / "sdk")
+        store = FolderStore(folder)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        for cmd in ("sample_setup", "sample_run"):
+            if cli.main(["-c", cmd, "-f", folder]) != 0:
+                raise AssertionError(f"cli {cmd} failed")
+        sample_s = time.perf_counter() - t0
+        read_path("sdk_sample")
+        t0 = time.perf_counter()
+        if cli.main(["-c", "verify_check", "-f", folder]) != 0:
+            raise AssertionError("cli verify_check failed")
+        check_s = time.perf_counter() - t0
+        pair = store.read_final_pair()
+        want, sizes = store_value_pair(specs, store)
+        if pair != want:
+            raise AssertionError("the CLI's final pair differs from the value "
+                                 "oracle's")
+        device_min = make_device_chips(dev)[3].device_min
+        phase("11b cli", f"sample_setup + sample_run on the card {sample_s:.1f} "
+              f"s (launches {paths['sdk_sample']}), verify_check "
+              f"{check_s:.1f} s; final pair == value oracle, w_x.x = "
+              f"{pair[0][0]}; its MSM sizes {sizes}, "
+              f"{sum(n >= device_min for n in sizes)} at or above device_min "
+              f"{device_min} (the rest on the host)")
+        out["cli"] = dict(sample_s=sample_s, verify_check_s=check_s,
+                          msm_sizes=sizes, device_min=device_min)
+
+        # 11c: the aggregator's keygen at agg_k=22
+        timer = StageTimer(dev, True)
+        build.reset_launches()
+        dv.reset_peak(dev)
+        t0 = time.perf_counter()
+        vk_setup = harness.verify_setup(specs, store, agg_k=AGG_K, device=dev,
+                                        timer=timer, params=params22)
+        setup_s = time.perf_counter() - t0
+        read_path("verify_setup_k22")
+        fp = fixtures.vk_fingerprint(vk_setup)
+        spans = " ".join(f"{k}={v:.2f}s/{timer.peak_bytes.get(k, 0) / gib:.2f}GiB"
+                         for k, v in timer.seconds.items())
+        phase("11c verify_setup", f"agg_k={AGG_K} keygen on the card "
+              f"{setup_s:.1f} s; spans (seconds/peak) {spans}; vk fingerprint "
+              f"{fp}; launches {paths['verify_setup_k22']}")
+        out["verify_setup"] = dict(seconds=setup_s, spans_s=timer.seconds,
+                                   spans_peak_bytes=timer.peak_bytes,
+                                   fingerprint=fp)
+
+        # 11d: the outer proof at agg_k=22
+        timer, ktimer = StageTimer(dev, True), StageTimer(dev, True)
+        params22.commit_log = []
+        build.reset_launches()
+        dv.reset_peak(dev)
+        t0 = time.perf_counter()
+        proof, instances = harness.verify_run(
+            specs, store, agg_k=AGG_K, device=dev, timer=timer,
+            keygen_timer=ktimer, params=params22)
+        run_s = time.perf_counter() - t0
+        read_path("verify_run_k22")
+        log, params22.commit_log = params22.commit_log, None
+        vk = store.read_verify_vkey()
+        if fixtures.vk_fingerprint(vk) != fp:
+            raise AssertionError("verify_run's vk differs from verify_setup's")
+        n_keygen = len(vk.fixed_commitments) + len(vk.permutation_commitments)
+        commits = [c for c in log[n_keygen:] if c["mode"] == "device"]
+        split = {p: sum(c["split_s"][p] for c in commits)
+                 for p in commits[0]["split_s"]}
+        peak = max(max(timer.peak_bytes.values()), max(ktimer.peak_bytes.values()))
+        spans = " ".join(f"{k}={v:.2f}s/{timer.peak_bytes.get(k, 0) / gib:.2f}GiB"
+                         for k, v in timer.seconds.items())
+        kspans = " ".join(f"{k}={v:.2f}s/{ktimer.peak_bytes.get(k, 0) / gib:.2f}GiB"
+                          for k, v in ktimer.seconds.items())
+        phase("11d verify_run", f"agg_k={AGG_K}: outer proof {len(proof)} B, "
+              f"{len(instances[0])} public inputs, {run_s:.1f} s in all; vk "
+              f"fingerprint {fp} == verify_setup's; keygen spans (seconds/peak) "
+              f"{kspans}; proof spans {spans}; {len(commits)} proof commits, "
+              f"split (s, summed) { {p: round(v, 3) for p, v in split.items()} }, "
+              f"max row load {max(c['max_row_load'] for c in commits)}; peak "
+              f"{peak / gib:.2f} GiB against the {estimate_bytes / gib:.2f} GiB "
+              f"estimate (72 GB spill limit); launches {paths['verify_run_k22']}")
+        out["verify_run"] = dict(
+            seconds=run_s, proof_bytes=len(proof), public_inputs=len(instances[0]),
+            spans_s=timer.seconds, spans_peak_bytes=timer.peak_bytes,
+            keygen_spans_s=ktimer.seconds,
+            keygen_spans_peak_bytes=ktimer.peak_bytes, commits=len(commits),
+            commit_split_s=split, peak_bytes=peak, estimate_bytes=estimate_bytes)
+        kernels = results.setdefault("kernels", {})
+        check_program(dev, rng, vk, bound, kernels, slice_rows=1 << 12,
+                      tag="11d program")
+        torch.cuda.empty_cache()
+        ext_cols = len(quotient_program.compile_quotient(
+            vk.cs, 1, [0] * vk.cs.num_challenges, 0, 0, 0, 0)[1])
+        check_ntt(dev, rng, bound, kernels, ext_cols, k=AGG_K,
+                  twin_cols=(ext_cols - 1,), tag="11d ntt", check_plan=False)
+        torch.cuda.empty_cache()
+        check_elementwise(dev, rng, 1 << AGG_K, bound, kernels, tag="11d field",
+                          twin_rows=1 << 18)
+        torch.cuda.empty_cache()
+
+        # 11e: the outer proof on values; a flipped byte fails
+        t0 = time.perf_counter()
+        harness.verify_check_outer(store, agg_k=AGG_K, device=dev, params=params22)
+        outer_s = time.perf_counter() - t0
+        # the proof ends with one opening point a rotation set (x and y, 32
+        # bytes each, in the SHA transcript); flip the low byte of the last
+        # evaluation before them
+        sets = rotation_sets(query_plan(vk, 1))
+        off = len(proof) - 64 * len(sets) - 32
+        bad = bytearray(proof)
+        bad[off] ^= 0x01
+        store.write_verify_proof(bytes(bad))
+        try:
+            harness.verify_check_outer(store, agg_k=AGG_K, device=dev,
+                                       params=params22)
+            verdict = None
+        except (RuntimeError, ValueError, AssertionError) as e:
+            verdict = f"{type(e).__name__}: {e}"
+        store.write_verify_proof(proof)
+        if verdict is None:
+            raise AssertionError("an outer proof with a flipped byte passed")
+        phase("11e verify_check_outer", f"the outer proof verifies on values "
+              f"({outer_s:.3f} s); flipped byte at offset {off} -> {verdict}")
+
+        # 11f: the CLI's verify_check with the stored outer proof
+        t0 = time.perf_counter()
+        if cli.main(["-c", "verify_check", "-f", folder,
+                     "--agg-k", str(AGG_K)]) != 0:
+            raise AssertionError("cli verify_check with the outer proof failed")
+        phase("11f cli verify_check", f"final pair and the stored outer proof "
+              f"verified ({time.perf_counter() - t0:.1f} s, the k={AGG_K} SRS "
+              f"from _cache/)")
 
 
 def commit_ab(params, rng) -> str:
@@ -1170,15 +1622,19 @@ def commit_ab(params, rng) -> str:
             f"second device commit in ms: {split})")
 
 
-def k18_entry(r, paths, kname):
-    """A kernel's K=18 readings for the kernels line (None for a kernel on
-    no K=18 path, the batched padd): its launches on each K=18 path and its
-    check at the K=18 shape."""
+SDK_PATHS = ("setup_k22", "hybrid_k16", "sdk_sample", "verify_setup_k22",
+             "verify_run_k22")
+
+
+def shape_entry(r, paths, kname, path_names):
+    """A kernel's readings at a later phase's shape for the kernels line
+    (None for a kernel with no check there): its launches on each of
+    `path_names` and its check at that shape."""
     if r is None:
         return None
     bound_ms, bound_by = r["bound"]
     return {"launches_by_path": {p: c[kname] for p, c in paths.items()
-                                 if p.endswith("_k18") and c[kname]},
+                                 if p in path_names and c[kname]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "shape": r["shape"],
@@ -1186,7 +1642,7 @@ def k18_entry(r, paths, kname):
                                  "products", "slots", "columns", "smem_bytes",
                                  "chain_calls", "chain_ms", "plan_ms",
                                  "plan_device_ms", "forward_ms", "inverse_ms",
-                                 "b1_ms", "b1_bound_ms") if k in r}}
+                                 "b1_ms", "b1_bound_ms", "checked") if k in r}}
 
 
 def forbidden_modules() -> list[str]:
@@ -1364,13 +1820,19 @@ def main() -> int:
     k18_phase(dev, rng, bound, paths, read_path, res18)
     torch.cuda.empty_cache()
     res22: dict = {}
-    k22_commit(dev, rng, bound, res22)
+    params22 = k22_commit(dev, rng, bound, read_path, res22)
+    torch.cuda.empty_cache()
+    sdk_phase(dev, rng, bound, paths, read_path, params, vk,
+              uniq, want, params22,
+              res18["prove"]["working_set"]["agg_k22_estimate_bytes"], res22)
+    del params22
 
     bad_mods = forbidden_modules()
     if bad_mods:
         raise AssertionError(f"imported jax or the JAX package: {bad_mods[:5]}")
-    print(json.dumps({"k18": {kk: res18[kk] for kk in ("prove", "verify")},
-                      "k22_commit": res22["commit_k22"]}))
+    print(json.dumps({"k18": {kk: res18[kk] for kk in ("prove", "verify",
+                                                       "hybrid")},
+                      "k22_commit": res22["commit_k22"], "sdk": res22["sdk"]}))
     kernels = []
     for kname, (src, ref) in KERNEL_SOURCES.items():
         r = results[kname]
@@ -1398,7 +1860,11 @@ def main() -> int:
                                  "instructions", "products", "slots",
                                  "columns", "smem_bytes", "plain_rows",
                                  "plain_columns") if k in r},
-            "k18": k18_entry(res18["kernels"].get(kname), paths, kname),
+            "k18": shape_entry(res18["kernels"].get(kname), paths, kname,
+                               ("setup_keygen_k18", "prove_k18", "verify_k18",
+                                "hybrid_k18")),
+            "sdk": shape_entry(res22["kernels"].get(kname), paths, kname,
+                               SDK_PATHS),
             "ptxas": ptxas[PTXAS_SYMBOL[kname]],
             "sass_instructions": sass["kernels"].get(PTXAS_SYMBOL[kname])})
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,10 @@
 the wrappers of the accumulate and reduce kernels (csrc/msm.cu) with their
 plain twins, and the host row combine.
 
-Flow (phase B2 of the batched verifier, and every device commit of the
-prover): `bucket_plan_split` sorts each window's digits into buckets and
-cuts every window whose largest bucket holds more than `target` points into
+Flow (phase B2 of the batched verifier, every device commit of the
+prover, and `msm_ints`, the hybrid chips' MSM over host ints):
+`bucket_plan_split` sorts each window's digits into buckets and cuts
+every window whose largest bucket holds more than `target` points into
 several accumulator rows, so no (row, bucket) lane sums more than `target`
 points; the accumulate kernel sums every lane's points with the mixed add;
 the reduce kernel turns each row's buckets into sum_b b * S_b by a parallel
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import device as dv
 from ..ff import bn254 as ff
 from ..kernels import build
 from . import curve as cv
@@ -427,3 +429,23 @@ def combine_rows_host(totals, weights, c: int):
     if not entries:
         return None
     return ff.g1_msm([p for p, _ in entries], [s for _, s in entries])
+
+
+def msm_ints(points, scalars, c: int = 8, device="cuda"):
+    """sum_i s_i P_i over host affine int points (None = identity) and int
+    scalars, on `device`: an affine int point, or None. The counterpart of
+    the reference's `msm_host` (ops/msm.py:840) on the split plan: the
+    points become the accumulate kernel's affine table (identity rows
+    masked, so the mixed add never meets one), the scalars standard-form
+    words mod r, then `msm_totals` and the host row combine. No padding:
+    the plan and the kernels take any number of points (the reference pads
+    to a power of two for its jit shapes)."""
+    if len(points) != len(scalars):
+        raise ValueError(f"{len(points)} points but {len(scalars)} scalars")
+    if not points:
+        return None
+    dev = dv.resolve(device)
+    table = affine_table(cv.from_affine_ints(points, dev))
+    words = fo.to_tensor(fo.ints_to_words([int(s) % ff.R for s in scalars]), dev)
+    totals, weights = msm_totals(table, words, c)
+    return combine_rows_host(totals.unbind(1), weights, c)

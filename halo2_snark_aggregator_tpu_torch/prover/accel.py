@@ -378,26 +378,63 @@ class AccelPk:
 
 def keygen_accel(circuit, k: int, params: AccelParams,
                  instances: list[list[int]] | None = None,
-                 assignment: Assignment | None = None):
+                 assignment: Assignment | None = None,
+                 timer: StageTimer | None = None):
     """keygen_vk + keygen_pk on the device, identical (vk, sigma polys,
     commitments) to prover.keygen.keygen: the permutation cycle-splice over
     flat Python lists, sigmas gathered from an omega-power table on the
-    device, NTTs and commitments on the device. Returns (vk, AccelPk)."""
+    device, NTTs and commitments on the device. Returns (vk, AccelPk).
+    `timer` (a StageTimer) splits the time into synthesis, permutation (the
+    union-find), ntt, commit and other (the host int conversions)."""
+    timer = timer or _NULL_TIMER
     dev = params.device
-    cs = ConstraintSystem()
-    config = circuit.configure(cs)
-    n = 1 << k
-    usable = n - (cs.blinding_factors() + 1)
-    if assignment is None:
-        assignment = Assignment(cs, n, usable, instances)
-        log.info("keygen_accel: synthesizing (n=%d)...", n)
-        circuit.synthesize(config, assignment)
+    with timer.span("other"):
+        cs = ConstraintSystem()
+        config = circuit.configure(cs)
+        n = 1 << k
+        usable = n - (cs.blinding_factors() + 1)
+        if assignment is None:
+            assignment = Assignment(cs, n, usable, instances)
+            log.info("keygen_accel: synthesizing (n=%d)...", n)
+            with timer.span("synthesis"):
+                circuit.synthesize(config, assignment)
 
-    domain = Domain(k)
-    fixed_lagrange = [ints_to_mont(col, dev) for col in assignment.fixed]
-    fixed_coeff = ntt_many(fixed_lagrange, k, inverse=True)
+        domain = Domain(k)
+        fixed_lagrange = [ints_to_mont(col, dev) for col in assignment.fixed]
+        with timer.span("ntt"):
+            fixed_coeff = ntt_many(fixed_lagrange, k, inverse=True)
 
-    # permutation mapping: cycle-splice union-find over flat lists
+        with timer.span("permutation"):
+            map_flat = _permutation_map(cs, assignment, n)
+
+        # sigma[c][r] = delta^{mc} * omega^{mr}, (mc, mr) = mapping[c][r]
+        ncols = map_flat.shape[0]
+        omega_pows = mont_powers(domain.omega, n, dev)
+        deltas = ints_to_mont([pow(FR_DELTA, c, R) for c in range(ncols)], dev)
+        map_dev = map_flat.to(dev)
+        sigmas_lagrange = [m_mul(omega_pows[map_dev[ci] % n],
+                                 deltas[map_dev[ci] // n])
+                           for ci in range(ncols)]
+        del map_dev
+        with timer.span("ntt"):
+            sigmas_coeff = ntt_many(sigmas_lagrange, k, inverse=True)
+
+        log.info("keygen_accel: committing %d fixed + %d sigma cols",
+                 len(fixed_coeff), len(sigmas_coeff))
+        with timer.span("commit"):
+            fixed_commitments = [params.commit_coeff_mont(c) for c in fixed_coeff]
+            permutation_commitments = [params.commit_coeff_mont(s)
+                                       for s in sigmas_coeff]
+        vk = VerifyingKey(k=k, cs=cs, fixed_commitments=fixed_commitments,
+                          permutation_commitments=permutation_commitments)
+    return vk, AccelPk(vk, domain, fixed_lagrange, fixed_coeff,
+                       sigmas_lagrange, sigmas_coeff)
+
+
+def _permutation_map(cs: ConstraintSystem, assignment: Assignment,
+                     n: int) -> torch.Tensor:
+    """The permutation's mapping as int64 (ncols, n) flat cells (column *
+    n + row): the cycle-splice union-find over flat Python lists."""
     cols = cs.permutation_columns
     ncols = len(cols)
     col_pos = {c: i for i, c in enumerate(cols)}
@@ -420,27 +457,7 @@ def keygen_accel(circuit, k: int, params: AccelParams,
             continue
         map_list[a], map_list[b] = map_list[b], map_list[a]
         aux[ra] = rb
-    map_flat = torch.tensor(map_list, dtype=torch.int64).reshape(ncols, n)
-    del map_list, aux
-
-    # sigma[c][r] = delta^{mc} * omega^{mr}, (mc, mr) = mapping[c][r]
-    omega_pows = mont_powers(domain.omega, n, dev)
-    deltas = ints_to_mont([pow(FR_DELTA, c, R) for c in range(ncols)], dev)
-    map_dev = map_flat.to(dev)
-    sigmas_lagrange = [m_mul(omega_pows[map_dev[ci] % n], deltas[map_dev[ci] // n])
-                       for ci in range(ncols)]
-    sigmas_coeff = ntt_many(sigmas_lagrange, k, inverse=True)
-
-    log.info("keygen_accel: committing %d fixed + %d sigma cols",
-             len(fixed_coeff), len(sigmas_coeff))
-    vk = VerifyingKey(
-        k=k, cs=cs,
-        fixed_commitments=[params.commit_coeff_mont(c) for c in fixed_coeff],
-        permutation_commitments=[params.commit_coeff_mont(s)
-                                 for s in sigmas_coeff],
-    )
-    return vk, AccelPk(vk, domain, fixed_lagrange, fixed_coeff,
-                       sigmas_lagrange, sigmas_coeff)
+    return torch.tensor(map_list, dtype=torch.int64).reshape(ncols, n)
 
 
 # ---------------------------------------------------------------------------

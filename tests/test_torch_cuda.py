@@ -371,3 +371,23 @@ def test_tau_powers_words_on_card(cuda):
     got = srs.tau_powers_words(k, cuda)
     want = fo.to_tensor(fo.ints_to_words(srs.tau_powers(k)), cuda)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_msm_ints_on_card_matches_native(cuda, n):
+    """The hybrid chips' ints-in MSM on the card (split plan, accumulate,
+    reduce, host row combine) against the native g1_msm, with an identity
+    point and a zero scalar, and against the same call on the CPU twins."""
+    rng = np.random.default_rng(n)
+    pts = [ff.g1_mul(ff.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(n)]
+    scal = [int.from_bytes(rng.bytes(32), "little") % ff.R for _ in range(n)]
+    if n > 1:
+        pts[1] = None
+        scal[0] = 0
+    want = ff.g1_msm([p for p in pts if p is not None],
+                     [s for p, s in zip(pts, scal) if p is not None])
+    before = build.LAUNCHES["msm_accumulate"]
+    assert pm.msm_ints(pts, scal, device=cuda) == want
+    assert build.LAUNCHES["msm_accumulate"] == before + 1
+    if n <= 300:
+        assert pm.msm_ints(pts, scal, device="cpu") == want

@@ -24,6 +24,10 @@ COPIES = [
     "prover/domain.py", "prover/kzg.py", "prover/keygen.py", "prover/prove.py",
     "circuits/zkevm.py", "circuits/simple.py", "circuits/lookup.py",
     "native/__init__.py",
+    "utils/store.py", "protocol/instances.py",
+    "gadgets/base_gate.py", "gadgets/range_gate.py",
+    "gadgets/integer_chip.py", "gadgets/ecc_chip.py",
+    "arith/circuit.py", "circuits/aggregator.py", "prover/mock.py",
 ]
 
 

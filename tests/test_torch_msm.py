@@ -105,23 +105,28 @@ def test_full_add_matches_pallas_rows():
     assert cv.to_affine_ints(got) == [ff.g1_add(x, y) for x, y in cases]
 
 
-def _msm(points_int, scalars_int, c):
-    """Host int points (None = identity) / scalars -> affine int result,
-    through split plan -> accumulate -> reduce -> row combine on the CPU."""
-    table = pm.affine_table(cv.from_affine_ints(points_int, "cpu"))
-    scal = fo.to_tensor(fo.ints_to_words([s % ff.R for s in scalars_int]), "cpu")
-    totals, weights = pm.msm_totals(table, scal, c)
-    return pm.combine_rows_host(totals.unbind(1), weights, c)
-
-
-@pytest.mark.parametrize("n,c", [(64, 8), (256, 8), (200, 4)])
+@pytest.mark.parametrize("n,c", [(1, 8), (7, 8), (64, 8), (256, 8), (300, 8),
+                                 (200, 4)])
 def test_twin_msm_matches_native(n, c):
+    """`msm_ints` on the CPU (split plan -> accumulate -> reduce -> row
+    combine, the twins) against the native MSM, with an identity point and
+    a zero scalar among the inputs (at n = 1, one point with r - 1)."""
     pts = _points(60 + n, n)
-    scal = _scalars(70 + n, n)
-    pts[5] = None  # an identity point with a nonzero scalar is skipped
+    scal = _scalars(70 + n, n)  # scal[0] = 0
+    if n == 1:
+        scal = [ff.R - 1]
+    else:
+        pts[5 % n] = None  # an identity point with a nonzero scalar is skipped
     want = ff.g1_msm([p for p in pts if p is not None],
                      [s for p, s in zip(pts, scal) if p is not None])
-    assert _msm(pts, scal, c) == want
+    assert want is not None
+    assert pm.msm_ints(pts, scal, c, device="cpu") == want
+
+
+def test_msm_ints_edges():
+    assert pm.msm_ints([], [], device="cpu") is None
+    with pytest.raises(ValueError):
+        pm.msm_ints([ff.G1_GEN], [1, 2], device="cpu")
 
 
 def _sweep(acc, windows, nbuckets):
