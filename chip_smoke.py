@@ -82,7 +82,18 @@ Phases (each prints one line; any failure raises and exits nonzero):
      the aggregator's quotient program over 4,096 rows, its 44-column
      transform and the field kernel at 2^22 against their twins); 11e
      verify_check_outer passes, a flipped byte fails; 11f the CLI's
-     verify_check with the stored outer proof.
+     verify_check with the stored outer proof; 11b' (after 11b, before any
+     outer proof is stored) the CLI's verify_solidity target flow with
+     sha256 and keccak256, the card's proof equal to the host prover's; 11g
+     verify_solidity over 11d's outer proof: both sources checked, linted,
+     written and executed (the proof and verify_final_pair accepted, a
+     flipped proof word rejected), their sizes against EIP-170's 24,576 B;
+ 12. the second recursion layer: one demo target proof, the layer-1 outer
+     proof with the Poseidon transcript at k=20 (verify_check_l1_poseidon
+     passes, a flipped byte fails), the layer-2 circuit's rows from one
+     keygen synthesis and l2_k the least k that holds them, the CLI's
+     verify2_run at l2_k (spans and peaks by StageTimer), verify2_check
+     passes and a flipped byte fails, the CLI's verify2_check.
 Then a JSON line of the K=18 proof's and verifier's numbers, the 2^22
 commit's and the SDK's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
@@ -170,8 +181,16 @@ PATH_KERNELS.update(setup_keygen_k18=PATH_KERNELS["setup_keygen"],
                     sdk_sample=PATH_KERNELS["prove"],
                     verify_setup_k22=("field", "ntt_transform",
                                       "msm_accumulate", "msm_reduce"),
-                    verify_run_k22=PATH_KERNELS["prove"])
+                    verify_run_k22=PATH_KERNELS["prove"],
+                    # phase 11b' and 12: verify_solidity's target proofs,
+                    # the layer-1 SRS and outer proof, the layer-2 proof
+                    sdk_solidity=PATH_KERNELS["prove"],
+                    setup_k20=("fixed_base", "field"),
+                    l1_run_k20=PATH_KERNELS["prove"],
+                    l2_run=PATH_KERNELS["prove"])
 AGG_K = 22
+L1_K = 20               # the layer-1 outer proof of phase 12 (bench.py:514)
+L2_K = 21               # its layer 2: 2,056,353 rows, measured on the card
 CROSSOVER_REPS = 3
 
 
@@ -1423,8 +1442,6 @@ def sdk_phase(dev, rng, bound, paths, read_path, params16, vk16, uniq,
     from halo2_snark_aggregator_tpu_torch import fixtures
     from halo2_snark_aggregator_tpu_torch.arith.device_value import make_device_chips
     from halo2_snark_aggregator_tpu_torch.kernels import build
-    from halo2_snark_aggregator_tpu_torch.protocol.queryplan import (
-        query_plan, rotation_sets)
     from halo2_snark_aggregator_tpu_torch.prover import quotient_program
     from halo2_snark_aggregator_tpu_torch.prover.accel import StageTimer
     from halo2_snark_aggregator_tpu_torch.sdk import cli, harness
@@ -1488,6 +1505,7 @@ def sdk_phase(dev, rng, bound, paths, read_path, params16, vk16, uniq,
               f"{device_min} (the rest on the host)")
         out["cli"] = dict(sample_s=sample_s, verify_check_s=check_s,
                           msm_sizes=sizes, device_min=device_min)
+        solidity_target(dev, folder, specs, paths, read_path, out)
 
         # 11c: the aggregator's keygen at agg_k=22
         timer = StageTimer(dev, True)
@@ -1563,23 +1581,9 @@ def sdk_phase(dev, rng, bound, paths, read_path, params16, vk16, uniq,
         t0 = time.perf_counter()
         harness.verify_check_outer(store, agg_k=AGG_K, device=dev, params=params22)
         outer_s = time.perf_counter() - t0
-        # the proof ends with one opening point a rotation set (x and y, 32
-        # bytes each, in the SHA transcript); flip the low byte of the last
-        # evaluation before them
-        sets = rotation_sets(query_plan(vk, 1))
-        off = len(proof) - 64 * len(sets) - 32
-        bad = bytearray(proof)
-        bad[off] ^= 0x01
-        store.write_verify_proof(bytes(bad))
-        try:
-            harness.verify_check_outer(store, agg_k=AGG_K, device=dev,
-                                       params=params22)
-            verdict = None
-        except (RuntimeError, ValueError, AssertionError) as e:
-            verdict = f"{type(e).__name__}: {e}"
-        store.write_verify_proof(proof)
-        if verdict is None:
-            raise AssertionError("an outer proof with a flipped byte passed")
+        off = last_eval_offset(proof, vk, 64)
+        verdict = flipped_verdict(lambda: harness.verify_check_outer(
+            store, agg_k=AGG_K, device=dev, params=params22), store, proof, off)
         phase("11e verify_check_outer", f"the outer proof verifies on values "
               f"({outer_s:.3f} s); flipped byte at offset {off} -> {verdict}")
 
@@ -1591,6 +1595,282 @@ def sdk_phase(dev, rng, bound, paths, read_path, params16, vk16, uniq,
         phase("11f cli verify_check", f"final pair and the stored outer proof "
               f"verified ({time.perf_counter() - t0:.1f} s, the k={AGG_K} SRS "
               f"from _cache/)")
+        solidity_outer(store, specs, params22, out)
+
+
+def last_eval_offset(proof: bytes, vk, point_bytes: int) -> int:
+    """The low byte of a proof's last evaluation: the proof ends with one
+    opening point a rotation set (64 bytes in the SHA-256 transcript, 32
+    compressed in the Poseidon one). A flip there reaches the pairing; a
+    flipped point byte fails at decompression."""
+    from halo2_snark_aggregator_tpu_torch.protocol.queryplan import (
+        query_plan, rotation_sets)
+
+    return len(proof) - point_bytes * len(rotation_sets(query_plan(vk, 1))) - 32
+
+
+def flipped_verdict(check, store, proof: bytes, off: int) -> str:
+    """`check()` over the store with byte `off` of its outer proof flipped
+    (the proof written back after): the exception it raised; a check that
+    passes fails the smoke."""
+    bad = bytearray(proof)
+    bad[off] ^= 0x01
+    store.write_verify_proof(bytes(bad))
+    try:
+        check()
+        verdict = None
+    except (RuntimeError, ValueError, AssertionError) as e:
+        verdict = f"{type(e).__name__}: {e}"
+    finally:
+        store.write_verify_proof(proof)
+    if verdict is None:
+        raise AssertionError(f"a proof with byte {off} flipped passed")
+    return verdict
+
+
+def solidity_target(dev, folder, specs, paths, read_path, out) -> None:
+    """Phase 11b': the CLI's verify_solidity on 11b's folder before any
+    outer proof is stored (the target flow): a demo target proof made on
+    the card with each transcript hash, both sources written and accepting
+    it; the sha256 proof equal to the host prover's."""
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.prover.keygen import keygen
+    from halo2_snark_aggregator_tpu_torch.prover.prove import create_proof
+    from halo2_snark_aggregator_tpu_torch.sdk import cli, harness
+    from halo2_snark_aggregator_tpu_torch.transcript.host import ShaWrite
+    from halo2_snark_aggregator_tpu_torch.utils.store import FolderStore
+
+    store = FolderStore(folder)
+    spec = specs[0]
+    secs, sizes = {}, {}
+    build.reset_launches()
+    for algo in ("sha256", "keccak256"):
+        for name in ("verifier.sol", "verifier_packed.sol"):
+            store._path(name).unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        if cli.main(["-c", "verify_solidity", "-f", folder, "--algo", algo]) != 0:
+            raise AssertionError(f"cli verify_solidity --algo {algo} failed")
+        secs[algo] = time.perf_counter() - t0
+        sizes[algo] = {name: store._path(name).stat().st_size
+                       for name in ("verifier.sol", "verifier_packed.sol")}
+        if f"{algo}(buf)" not in store._path("verifier.sol").read_text():
+            raise AssertionError(f"verifier.sol does not hash with {algo}")
+    read_path("sdk_solidity")
+    run = harness.verify_solidity(specs, store, algo="sha256", device=dev)
+    params = store.read_target_params(spec.name)
+    _vk, pk = keygen(spec.circuit_builder(0), spec.k, params)
+    circuit = spec.circuit_builder(1)
+    host = create_proof(pk, params, [circuit], [spec.instance_builder(circuit)],
+                        ShaWrite("sha256"), seed=0)
+    if run.proof != host:
+        raise AssertionError("verify_solidity's card proof differs from the "
+                             "host prover's")
+    phase("11b' cli verify_solidity", f"target flow on the card: sha256 "
+          f"{secs['sha256']:.1f} s, keccak256 {secs['keccak256']:.1f} s; both "
+          f"sources written (bytes {sizes}) and accepting the proof made on "
+          f"the card; the sha256 proof == the host prover's ({len(host)} B); "
+          f"{len(run.gen.cg.statements)} statements; launches "
+          f"{paths['sdk_solidity']}")
+    out["solidity_target"] = dict(seconds=secs, bytes=sizes,
+                                  statements=len(run.gen.cg.statements))
+
+
+def solidity_outer(store, specs, params22, out) -> None:
+    """Phase 11g: verify_solidity over 11d's k=22 outer proof (the outer
+    flow): both sources checked, linted, written and accepting the proof,
+    verify_final_pair accepting the stored target pair; a flipped proof
+    word rejected by both; the contract's sizes against EIP-170."""
+    from halo2_snark_aggregator_tpu_torch.sdk import harness
+
+    t0 = time.perf_counter()
+    run = harness.verify_solidity(specs, store, agg_k=AGG_K, algo="sha256",
+                                  device=params22.device, params=params22)
+    total = time.perf_counter() - t0
+    for name in run.sources:
+        if store._path(name).read_text() != run.sources[name]:
+            raise AssertionError(f"{name} was not written")
+    # the low bit of the last evaluation: the word before the opening points
+    vk = store.read_verify_vkey()
+    bad = list(run.words)
+    i = last_eval_offset(run.proof, vk, 64) // 32
+    bad[i] ^= 1
+    rejected = {}
+    for name, text in run.sources.items():
+        t0 = time.perf_counter()
+        verdict = harness.solidity_verdict(text, run.gen.algo, bad, run.instances)
+        if verdict == "accepted":
+            raise AssertionError(f"{name} accepted a flipped proof word")
+        rejected[name] = (verdict, time.perf_counter() - t0)
+    prog = run.prog
+    blob = len(prog.ops) + 32 * len(prog.cpool)
+    phase("11g verify_solidity", f"outer flow over the k={AGG_K} proof "
+          f"({len(run.proof)} B): both sources checked, linted, written and "
+          f"accepting it, verify_final_pair accepting the stored target pair; "
+          f"word {i} flipped -> " + ", ".join(
+              f"{n} {v} ({t:.1f} s)" for n, (v, t) in rejected.items())
+          + f"; {len(run.gen.cg.statements)} statements, "
+          f"{run.gen.transcript_words} proof words, memory_size "
+          f"{prog.memory_size}; packed blob {len(prog.ops)} B + constant pool "
+          f"{32 * len(prog.cpool)} B = {blob} B against EIP-170's 24576 B; "
+          f"verifier.sol {len(run.sources['verifier.sol'])} B of text; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run.seconds.items())
+          + f"; {total:.1f} s in all")
+    out["solidity_outer"] = dict(
+        statements=len(run.gen.cg.statements),
+        proof_words=run.gen.transcript_words, memory_size=prog.memory_size,
+        ops_bytes=len(prog.ops), cpool_bytes=32 * len(prog.cpool),
+        eip170_bytes=24576, seconds=run.seconds, total_s=total,
+        flipped={n: v for n, (v, _t) in rejected.items()})
+
+
+def recursion_phase(dev, paths, read_path, params22, out) -> None:
+    """Phase 12: the second recursion layer at the reference bench's shape
+    (bench.py:513-528): one demo target proof, the layer-1 outer proof with
+    the Poseidon transcript at L1_K, verify_check_l1_poseidon (and a
+    flipped byte failing it); the layer-2 circuit synthesized once for its
+    rows, l2_k the least k that holds them; the CLI's verify2_run at l2_k
+    (its keygen reusing that synthesis, timed by StageTimers), verify2_check
+    (and a flipped byte failing it), the CLI's verify2_check."""
+    import functools
+    import tempfile
+
+    from halo2_snark_aggregator_tpu_torch import device as dv
+    from halo2_snark_aggregator_tpu_torch import fixtures
+    from halo2_snark_aggregator_tpu_torch.circuits.aggregator import AggregatorCircuit
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.prover.accel import (StageTimer,
+                                                               synthesize_keygen)
+    from halo2_snark_aggregator_tpu_torch.prover.srs import unsafe_setup_accel
+    from halo2_snark_aggregator_tpu_torch.sdk import cli, harness
+    from halo2_snark_aggregator_tpu_torch.utils.store import FolderStore
+
+    gib = 1 << 30
+
+    def spans(timer):
+        return " ".join(f"{k}={v:.2f}s/{timer.peak_bytes.get(k, 0) / gib:.2f}GiB"
+                        for k, v in timer.seconds.items())
+
+    rec = out.setdefault("recursion", {})
+    spec = cli.demo_spec()
+    spec.n_proofs = 1
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = str(Path(tmp) / "recurse")
+        store = FolderStore(folder)
+        harness.sample_setup(spec, store, device=dev)
+        harness.sample_run(spec, store, device=dev)
+
+        # 12a: the layer-1 outer proof, Poseidon transcript, at L1_K
+        build.reset_launches()
+        t0 = time.perf_counter()
+        params1 = unsafe_setup_accel(L1_K, device=dev)
+        srs_s = time.perf_counter() - t0
+        read_path("setup_k20")
+        timer, ktimer = StageTimer(dev, True), StageTimer(dev, True)
+        build.reset_launches()
+        dv.reset_peak(dev)
+        t0 = time.perf_counter()
+        proof1, inst1 = harness.verify_run(
+            [spec], store, agg_k=L1_K, transcript="poseidon", device=dev,
+            timer=timer, keygen_timer=ktimer, params=params1)
+        l1_s = time.perf_counter() - t0
+        read_path("l1_run_k20")
+        vk1 = store.read_verify_vkey()
+        fp1 = fixtures.vk_fingerprint(vk1)
+        t0 = time.perf_counter()
+        harness.verify_check_l1_poseidon(store, L1_K, device=dev, params=params1)
+        l1_check_s = time.perf_counter() - t0
+        off = last_eval_offset(proof1, vk1, 32)
+        verdict = flipped_verdict(lambda: harness.verify_check_l1_poseidon(
+            store, L1_K, device=dev, params=params1), store, proof1, off)
+        peak1 = max(max(timer.peak_bytes.values()), max(ktimer.peak_bytes.values()))
+        phase("12a layer 1", f"SRS 2^{L1_K} {srs_s:.1f} s; verify_run at "
+              f"k={L1_K}, Poseidon transcript: {len(proof1)} B, "
+              f"{len(inst1[0])} public inputs, {l1_s:.1f} s in all; vk "
+              f"fingerprint {fp1}; keygen spans (seconds/peak) {spans(ktimer)}; "
+              f"proof spans {spans(timer)}; peak {peak1 / gib:.2f} GiB; "
+              f"verify_check_l1_poseidon passes ({l1_check_s:.2f} s), byte "
+              f"{off} flipped -> {verdict}; launches {paths['l1_run_k20']}")
+        rec["layer1"] = dict(
+            k=L1_K, seconds=l1_s, srs_s=srs_s, proof_bytes=len(proof1),
+            fingerprint=fp1, spans_s=timer.seconds,
+            spans_peak_bytes=timer.peak_bytes, keygen_spans_s=ktimer.seconds,
+            keygen_spans_peak_bytes=ktimer.peak_bytes, peak_bytes=peak1,
+            check_s=l1_check_s)
+
+        # 12b: the layer-2 circuit's rows, from one keygen synthesis at
+        # L2_K (at the next k if they overflow it)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        agg2 = AggregatorCircuit([harness.layer2_target(store, params1)])
+        for k in range(L2_K, AGG_K + 1):
+            try:
+                asg = synthesize_keygen(agg2, k)
+                break
+            except ValueError as e:
+                phase("12b layer-2 rows", f"2^{k} rows overflow: {e}")
+        else:
+            raise AssertionError(f"the layer-2 circuit needs more than "
+                                 f"2^{AGG_K} rows")
+        rows_s = time.perf_counter() - t0
+        rows = asg.max_row_touched + 1
+        l2_k = harness.smallest_k(asg)
+        phase("12b layer-2 rows", f"{rows} rows (the 2^17-row range table "
+              f"included; {asg.n - asg.usable_rows} blinding rows) from one "
+              f"keygen synthesis at 2^{k} ({rows_s:.1f} s): l2_k = {l2_k}")
+        if l2_k != k:
+            asg = None  # not the synthesis of a key at l2_k
+
+        # 12c: the CLI's verify2_run, its stage timed by StageTimers
+        timer, ktimer = StageTimer(dev, True), StageTimer(dev, True)
+        run2 = harness.verify2_run
+        harness.verify2_run = functools.partial(
+            run2, timer=timer, keygen_timer=ktimer, l1_params=params1,
+            params=params22 if l2_k == AGG_K else None, assignment=asg)
+        build.reset_launches()
+        dv.reset_peak(dev)
+        t0 = time.perf_counter()
+        try:
+            if cli.main(["-c", "verify2_run", "-f", folder,
+                         "--agg-k", str(l2_k)]) != 0:
+                raise AssertionError("cli verify2_run failed")
+        finally:
+            harness.verify2_run = run2
+        l2_s = time.perf_counter() - t0
+        read_path("l2_run")
+        del asg
+        l2 = FolderStore(Path(folder) / "l2")
+        proof2 = l2.read_verify_proof()
+        vk2 = l2.read_verify_vkey()
+        fp2 = fixtures.vk_fingerprint(vk2)
+        peak2 = max(max(timer.peak_bytes.values()), max(ktimer.peak_bytes.values()))
+        params2 = params22 if l2_k == AGG_K else None
+        t0 = time.perf_counter()
+        harness.verify2_check(l2, l2_k, device=dev, params=params2)
+        l2_check_s = time.perf_counter() - t0
+        off = last_eval_offset(proof2, vk2, 64)
+        verdict = flipped_verdict(lambda: harness.verify2_check(
+            l2, l2_k, device=dev, params=params2), l2, proof2, off)
+        t0 = time.perf_counter()
+        if cli.main(["-c", "verify2_check", "-f", folder,
+                     "--agg-k", str(l2_k)]) != 0:
+            raise AssertionError("cli verify2_check failed")
+        cli_check_s = time.perf_counter() - t0
+        phase("12c layer 2", f"the CLI's verify2_run at l2_k={l2_k}: "
+              f"{len(proof2)} B, {l2_s:.1f} s in all; vk fingerprint {fp2} "
+              f"(layer 1's {fp1}); keygen spans (seconds/peak) {spans(ktimer)}; "
+              f"proof spans {spans(timer)}; peak {peak2 / gib:.2f} GiB; "
+              f"verify2_check passes ({l2_check_s:.2f} s), byte {off} flipped "
+              f"-> {verdict}; the CLI's verify2_check passes "
+              f"({cli_check_s:.1f} s); launches {paths['l2_run']}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        rec["layer2"] = dict(
+            k=l2_k, rows=rows, rows_s=rows_s, seconds=l2_s,
+            proof_bytes=len(proof2), fingerprint=fp2, spans_s=timer.seconds,
+            spans_peak_bytes=timer.peak_bytes, keygen_spans_s=ktimer.seconds,
+            keygen_spans_peak_bytes=ktimer.peak_bytes, peak_bytes=peak2,
+            check_s=l2_check_s, cli_check_s=cli_check_s)
+        rec["seconds"] = time.perf_counter() - t_phase
 
 
 def commit_ab(params, rng) -> str:
@@ -1622,8 +1902,9 @@ def commit_ab(params, rng) -> str:
             f"second device commit in ms: {split})")
 
 
-SDK_PATHS = ("setup_k22", "hybrid_k16", "sdk_sample", "verify_setup_k22",
-             "verify_run_k22")
+SDK_PATHS = ("setup_k22", "hybrid_k16", "sdk_sample", "sdk_solidity",
+             "verify_setup_k22", "verify_run_k22", "setup_k20", "l1_run_k20",
+             "l2_run")
 
 
 def shape_entry(r, paths, kname, path_names):
@@ -1825,6 +2106,8 @@ def main() -> int:
     sdk_phase(dev, rng, bound, paths, read_path, params, vk,
               uniq, want, params22,
               res18["prove"]["working_set"]["agg_k22_estimate_bytes"], res22)
+    torch.cuda.empty_cache()
+    recursion_phase(dev, paths, read_path, params22, res22["sdk"])
     del params22
 
     bad_mods = forbidden_modules()

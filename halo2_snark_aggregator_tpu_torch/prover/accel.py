@@ -376,6 +376,20 @@ class AccelPk:
                        up(pk.sigmas_coeff))
 
 
+def synthesize_keygen(circuit, k: int,
+                      instances: list[list[int]] | None = None) -> Assignment:
+    """The circuit's keygen synthesis at 2^k rows, as keygen_accel runs it
+    (which takes it back as `assignment=`). Its `max_row_touched` + 1 is
+    the rows the circuit uses; a row past 2^k's usable rows raises
+    ValueError."""
+    cs = ConstraintSystem()
+    config = circuit.configure(cs)
+    n = 1 << k
+    assignment = Assignment(cs, n, n - (cs.blinding_factors() + 1), instances)
+    circuit.synthesize(config, assignment)
+    return assignment
+
+
 def keygen_accel(circuit, k: int, params: AccelParams,
                  instances: list[list[int]] | None = None,
                  assignment: Assignment | None = None,
@@ -389,15 +403,12 @@ def keygen_accel(circuit, k: int, params: AccelParams,
     timer = timer or _NULL_TIMER
     dev = params.device
     with timer.span("other"):
-        cs = ConstraintSystem()
-        config = circuit.configure(cs)
         n = 1 << k
-        usable = n - (cs.blinding_factors() + 1)
         if assignment is None:
-            assignment = Assignment(cs, n, usable, instances)
             log.info("keygen_accel: synthesizing (n=%d)...", n)
             with timer.span("synthesis"):
-                circuit.synthesize(config, assignment)
+                assignment = synthesize_keygen(circuit, k, instances)
+        cs = assignment.cs
 
         domain = Domain(k)
         fixed_lagrange = [ints_to_mont(col, dev) for col in assignment.fixed]

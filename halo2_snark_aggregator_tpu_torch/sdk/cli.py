@@ -11,10 +11,18 @@ Commands (sdk/src/lib.rs:30-41, 83-177):
   verify_run       outer aggregation proof (accelerated prover, SHA256)
   verify_check     aggregation verify on the hybrid chips -> final pair;
                    verifies the stored outer proof on values when present
+  verify_solidity  EVM verifier codegen (verifier.sol, verifier_packed.sol):
+                   over the stored outer proof, else over a demo target
+                   proof made with --algo; both sources executed
+  verify2_run      second recursion layer: aggregate the (Poseidon) layer-1
+                   outer proof into a layer-2 proof under <folder>/l2
+  verify2_check    verify the layer-2 outer proof on values
 
 Every stage runs on the card, and raises when there is none; `--cpu` runs
-every stage on the CPU instead (each kernel's plain twin). Not ported yet:
-verify_solidity, verify2_run, verify2_check.
+every stage on the CPU instead (each kernel's plain twin). verify2_run
+takes the layer-1 k from the stored layer-1 vk (the reference CLI assumes
+--agg-k; the two agree when this CLI's verify_run made the layer-1 proof
+at --agg-k) and proves layer 2 at --agg-k.
 
 The built-in demo target is the SimpleMulCircuit (2 proofs, K=6), the analog
 of sdk/examples/simple-example.rs.
@@ -67,7 +75,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="halo2-snark-aggregator-tpu-torch")
     parser.add_argument("-c", "--command", required=True,
                         choices=["sample_setup", "sample_run", "verify_setup",
-                                 "verify_run", "verify_check"])
+                                 "verify_run", "verify_check", "verify_solidity",
+                                 "verify2_run", "verify2_check"])
     parser.add_argument("-f", "--folder", required=True)
     parser.add_argument("--cpu", action="store_true",
                         help="run the stage on the CPU (the kernels' plain "
@@ -75,6 +84,11 @@ def main(argv=None):
     parser.add_argument("--agg-k", type=int, default=22,
                         help="aggregation-circuit size (reference k=22, "
                              "simple-example.rs:361-363)")
+    parser.add_argument("--algo", choices=["sha256", "keccak256"],
+                        default="sha256",
+                        help="verify_solidity transcript hash: sha256 "
+                             "precompile or the native keccak256 opcode "
+                             "(reference codegen.rs:19-37)")
     parser.add_argument("--transcript", choices=["sha", "poseidon"],
                         default="sha",
                         help="outer-proof transcript flavor (poseidon feeds "
@@ -119,6 +133,34 @@ def main(argv=None):
         if store.exists("verify_circuit_proof.data"):
             harness.verify_check_outer(store, agg_k=args.agg_k, device=device)
             print("outer proof natively verified (SHA256 transcript)")
+    elif args.command == "verify2_run":
+        l2 = FolderStore(os.path.join(args.folder, "l2"))
+        proof, instances = harness.verify2_run(store, l2, l2_k=args.agg_k,
+                                               device=device)
+        print(f"layer-2 outer proof written ({len(proof)} bytes, "
+              f"{len(instances[0])} public inputs)")
+    elif args.command == "verify2_check":
+        l2 = FolderStore(os.path.join(args.folder, "l2"))
+        harness.verify2_check(l2, l2_k=args.agg_k, device=device)
+        print("layer-2 outer proof natively verified")
+    elif args.command == "verify_solidity":
+        outer = store.exists("verify_circuit_proof.data")
+        if outer and args.algo != "sha256":
+            raise SystemExit("stored outer proofs use the sha256 "
+                             "transcript (harness.verify_run)")
+        if outer:
+            print(f"generating verifier for the stored outer proof "
+                  f"({len(store.read_verify_proof())} bytes, k={args.agg_k})")
+        run = harness.verify_solidity(specs, store, agg_k=args.agg_k,
+                                      algo=args.algo, device=device)
+        prog = run.prog
+        print(f"verifier.sol written ({run.gen.transcript_words} proof words, "
+              f"{len(run.gen.cg.statements)} statements); verifier_packed.sol "
+              f"written ({len(prog.ops)}B opcode blob + "
+              f"{32 * len(prog.cpool)}B constant pool, memory_size "
+              f"{prog.memory_size}); both sources executed and verified "
+              f"the proof"
+              + (" (+ on-chain final-pair packing checked)" if outer else ""))
     return 0
 
 

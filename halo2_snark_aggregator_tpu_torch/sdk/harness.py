@@ -16,7 +16,15 @@ twin):
   * verify_setup / verify_run: the aggregation circuit's keygen and its
     outer proof (SHA-256 transcript) at `agg_k` on the accelerated SRS
     (`setup_cached_accel`); verify_check_outer checks the stored outer
-    proof on values.
+    proof on values;
+  * verify_solidity: the EVM verifier (solidity/) generated over the stored
+    outer proof, or over a demo target proof made on `device` with the
+    SHA-256 or Keccak-256 transcript; both emitted sources are checked,
+    linted, written and executed on the proof;
+  * the second recursion layer: verify_check_l1_poseidon checks a
+    Poseidon-transcript layer-1 outer proof on values, verify2_run proves
+    it inside a second aggregation circuit into another store,
+    verify2_check checks that layer-2 proof.
 
 The store holds host forms only, so every file it writes loads with no card
 and without the JAX package: the `ParamsKZG`, the vk, and the proving
@@ -26,8 +34,7 @@ raw proofs and the int-list instance and final-pair files are the same
 format in both.
 
 The reference's `spill=` argument is dropped (the port has no spill mode;
-prover/accel.py). `verify_check_l1_poseidon`, `verify2_run` and
-`verify2_check` are not ported yet.
+prover/accel.py).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from ..protocol.transcript import PoseidonTranscriptRead
 from ..prover.accel import (AccelParams, AccelPk, create_proof_accel,
                             keygen_accel)
 from ..prover.domain import Domain
+from ..prover.keygen import Assignment
 from ..prover.kzg import ParamsKZG
 from ..prover.srs import CACHE_DIR, setup_cached_accel
 from ..transcript.host import PoseidonWrite
@@ -308,9 +316,28 @@ def load_checkpoint(store: FolderStore, agg_k: int, shape: dict,
     return pk_from_columns(vk, cols, device)
 
 
+def aggregator_shape(agg) -> dict:
+    """What a keygen checkpoint is valid for: the aggregator's targets, its
+    proofs a target, and its targets' vk fingerprints (their fixed
+    columns are constants of the aggregator's)."""
+    return {"n_targets": len(agg.circuits),
+            "n_proofs": [len(t.proofs) for t in agg.circuits],
+            "targets": [vk_fingerprint(t.vk) for t in agg.circuits]}
+
+
+def smallest_k(assignment: Assignment) -> int:
+    """The least k whose usable rows hold every row `assignment` touched."""
+    blinding = assignment.n - assignment.usable_rows
+    k = 1
+    while (1 << k) - blinding <= assignment.max_row_touched:
+        k += 1
+    return k
+
+
 def _prove_aggregator(agg, store: FolderStore, agg_k: int, seed: int,
                       transcript: str, device="cuda", timer=None,
-                      keygen_timer=None, params: AccelParams | None = None):
+                      keygen_timer=None, params: AccelParams | None = None,
+                      assignment: Assignment | None = None):
     from ..protocol.instances import final_pair_to_instances
     from ..transcript.host import ShaWrite
 
@@ -326,13 +353,11 @@ def _prove_aggregator(agg, store: FolderStore, agg_k: int, seed: int,
     # valid only for the exact aggregator it was keygen'd for: its shape,
     # its targets' vks (embedded in its fixed columns) and the stored vkey
     checkpoint = agg_k >= 18
-    shape = {"n_targets": len(agg.circuits),
-             "n_proofs": [len(t.proofs) for t in agg.circuits],
-             "targets": [vk_fingerprint(t.vk) for t in agg.circuits]} \
-        if hasattr(agg, "circuits") else {}
+    shape = aggregator_shape(agg)
     apk = load_checkpoint(store, agg_k, shape, aparams.device) if checkpoint else None
     if apk is None:
-        vk, apk = keygen_accel(agg, agg_k, aparams, timer=keygen_timer)
+        vk, apk = keygen_accel(agg, agg_k, aparams, assignment=assignment,
+                               timer=keygen_timer)
         store.write_verify_vkey(vk)
         if checkpoint:
             t0 = time.perf_counter()
@@ -355,21 +380,228 @@ def verify_check_outer(store: FolderStore, agg_k: int = 22, device="cuda",
     the accelerated SRS's verifier points."""
     from ..protocol.transcript import ShaTranscriptRead
 
-    vk = store.read_verify_vkey()
-    proof = store.read_verify_proof()
-    instances = store.read_verify_instance()
     aparams = _agg_params(agg_k, device, params)
-
-    ctx = ValueContext()
-    pchip = ValueEccChip()
-    nchip = schip = pchip.scalar_chip
-    t = ShaTranscriptRead(proof, ctx, nchip)
-    cp = pv.CircuitProof(
-        name="verify_circuit", vk=vk, params=aparams,
-        proofs=[pv.ProofData(instances=[instances], transcript=t,
-                             key="verify_circuit_0")])
-    *_, ok = pv.verify_single_proof_in_chip(ctx, nchip, schip, pchip, cp)
-    if not ok:
+    if not _verify_stored_on_values(store, aparams, ShaTranscriptRead,
+                                    "verify_circuit"):
         raise RuntimeError("outer proof failed native verification")
     log.info("verify_check_outer: outer proof verified")
     return True
+
+
+# -- the EVM verifier (SolidityGenerate::call, sdk/src/lib.rs) ------------------
+
+
+@dataclasses.dataclass
+class SolidityRun:
+    """What verify_solidity made and checked: the generated verifier, the
+    packed program, both emitted sources by file name, the proof and its
+    calldata words, the flat instance words, the stored target final pair
+    (the outer flow) and the seconds of each step."""
+
+    gen: object
+    prog: object
+    sources: dict
+    proof: bytes
+    words: list
+    instances: list
+    final_pair: tuple | None
+    seconds: dict
+
+
+def solidity_verdict(source: str, algo: str, words: list, instances: list,
+                     final_pair: tuple | None = None) -> str:
+    """Execute an emitted verifier source on calldata: "accepted",
+    "rejected" (verify returned false) or "reverted: <reason>". With a
+    target final pair, verify_final_pair is executed instead: the contract
+    packs the pair into the leading four instance words itself
+    (verifier.sol:356-365)."""
+    from ..solidity.sol_exec import SolidityExecutor, _Revert
+
+    ex = SolidityExecutor(source, algo)
+    try:
+        if final_pair is None:
+            ok = ex.verify(words, instances)
+        else:
+            w_x, w_g = final_pair
+            ok = ex.call("verify_final_pair",
+                         [list(words), [*w_x, *w_g], list(instances[4:])])
+    except _Revert as e:
+        return f"reverted: {e}"
+    return "accepted" if ok else "rejected"
+
+
+def verify_solidity(specs: list[TargetCircuitSpec], store: FolderStore,
+                    agg_k: int = 22, algo: str = "sha256", device="cuda",
+                    params: AccelParams | None = None) -> SolidityRun:
+    """Generate the EVM verifier (the reference CLI's verify_solidity).
+    With an outer proof in the store (the production flow): over that
+    proof, its vk and instances, with the SRS at `agg_k` (`params`, or the
+    cached one) and the targets' G2 points for the inner final-pair check.
+    Otherwise over a demo target proof made on `device` with
+    `ShaWrite(algo)` (seed 0). Both sources are syntax-checked, linted,
+    written (verifier.sol, verifier_packed.sol) and executed on the proof;
+    in the outer flow verify_final_pair is executed on the stored target
+    final pair too. A rejection raises."""
+    from ..ff import bn254 as ff
+    from ..solidity.generate import generate
+    from ..solidity.interpreter import proof_to_words
+    from ..solidity.lint import lint_source
+    from ..solidity.packed import encode as encode_packed
+    from ..solidity.render import render, render_packed
+    from ..solidity.syntax import check_solidity
+    from ..transcript.host import ShaWrite
+
+    spec = specs[0]
+    seconds = {}
+    final_pair = target_params = None
+    t0 = time.perf_counter()
+    if store.exists("verify_circuit_proof.data"):
+        if algo != "sha256":
+            raise ValueError("stored outer proofs use the sha256 transcript "
+                             "(harness.verify_run)")
+        vk = store.read_verify_vkey()
+        proof = store.read_verify_proof()
+        instances = store.read_verify_instance()
+        params = _agg_params(agg_k, device, params)
+        if sum(map(len, instances)) > len(params.g_lagrange):
+            raise ValueError(f"{sum(map(len, instances))} instances, but the "
+                             f"SRS holds {len(params.g_lagrange)} Lagrange "
+                             f"points")
+        # the inner final pair is pairing-checked on chain against the
+        # target circuits' G2 points (verifier.sol:388-397)
+        target_params = store.read_target_params(spec.name)
+        final_pair = store.read_final_pair()
+        seconds["load"] = time.perf_counter() - t0
+    else:
+        dev = dv.resolve(device)
+        params = store.read_target_params(spec.name)
+        vk, cols = store.read_target_vkey(spec.name)
+        circuit = spec.circuit_builder(1)
+        instances = spec.instance_builder(circuit)
+        proof = create_proof_accel(pk_from_columns(vk, cols, dev),
+                                   AccelParams.from_params(params, device=dev),
+                                   [circuit], [instances], ShaWrite(algo),
+                                   seed=0)
+        seconds["prove"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gen = generate(vk, params, proof, instances, algo=algo)
+    seconds["generate"] = time.perf_counter() - t0
+    if not gen.pairing_ok:
+        raise RuntimeError("the generated verifier's own run failed the pairing")
+    t0 = time.perf_counter()
+    src = render(gen, params, target_params=target_params)
+    src_packed = render_packed(gen, params, target_params=target_params)
+    prog = encode_packed(gen)
+    seconds["render"] = time.perf_counter() - t0
+    check_solidity(src)
+    lint_source(src)
+    check_solidity(src_packed)
+    lint_source(src_packed, has_body=False,
+                packed_blob_bytes=len(prog.ops) + 32 * len(prog.cpool))
+    store.write_solidity(src)
+    store.write_solidity(src_packed, "verifier_packed.sol")
+
+    # execute both emitted sources on the proof: the reference's deploy and
+    # call (Verifier.test.ts:39-71) without a Solidity toolchain
+    words = proof_to_words(proof)
+    flat = [v % ff.R for col in instances for v in col]
+    sources = {"verifier.sol": src, "verifier_packed.sol": src_packed}
+    for name, text in sources.items():
+        t0 = time.perf_counter()
+        verdict = solidity_verdict(text, gen.algo, words, flat)
+        seconds[f"execute {name}"] = time.perf_counter() - t0
+        if verdict != "accepted":
+            raise RuntimeError(f"{name} {verdict} the proof it was generated "
+                               f"from")
+        if final_pair is not None:
+            t0 = time.perf_counter()
+            verdict = solidity_verdict(text, gen.algo, words, flat, final_pair)
+            seconds[f"final pair {name}"] = time.perf_counter() - t0
+            if verdict != "accepted":
+                raise RuntimeError(f"{name} verify_final_pair {verdict} the "
+                                   f"stored target final pair")
+    log.info("verify_solidity: %d statements, %d proof words, %d B opcode "
+             "blob + %d B constant pool", len(gen.cg.statements),
+             gen.transcript_words, len(prog.ops), 32 * len(prog.cpool))
+    return SolidityRun(gen=gen, prog=prog, sources=sources, proof=proof,
+                       words=words, instances=flat, final_pair=final_pair,
+                       seconds=seconds)
+
+
+# -- the second recursion layer ----------------------------------------------------
+# The reference's "Multi-layer aggregator" future work: a layer-1 outer
+# proof made with the Poseidon transcript becomes the target of another
+# aggregation circuit.
+
+
+def _verify_stored_on_values(store: FolderStore, aparams: AccelParams,
+                             read, name: str) -> bool:
+    """The value verifier over a store's outer proof, vk and instances."""
+    ctx = ValueContext()
+    pchip = ValueEccChip()
+    nchip = schip = pchip.scalar_chip
+    t = read(store.read_verify_proof(), ctx, nchip)
+    cp = pv.CircuitProof(
+        name=name, vk=store.read_verify_vkey(), params=aparams,
+        proofs=[pv.ProofData(instances=[store.read_verify_instance()],
+                             transcript=t, key=f"{name}_0")])
+    *_, ok = pv.verify_single_proof_in_chip(ctx, nchip, schip, pchip, cp)
+    return ok
+
+
+def verify_check_l1_poseidon(store: FolderStore, agg_k: int, device="cuda",
+                             params: AccelParams | None = None):
+    """Verify a Poseidon-transcript layer-1 outer proof on values: the
+    protocol the layer-2 circuit runs in-circuit."""
+    aparams = _agg_params(agg_k, device, params)
+    if not _verify_stored_on_values(store, aparams, PoseidonTranscriptRead,
+                                    "verify_circuit_l1"):
+        raise RuntimeError("layer-1 poseidon proof failed native verification")
+    log.info("verify_check_l1_poseidon: layer-1 proof verified on values")
+    return True
+
+
+def layer2_target(l1_store: FolderStore, l1_params):
+    """The layer-2 aggregator's one target: the stored layer-1 vk, proof
+    and instances over the layer-1 SRS."""
+    from ..circuits.aggregator import SingleProofWitness, VerifierCircuitTarget
+
+    return VerifierCircuitTarget(
+        name="verify_circuit_l1", vk=l1_store.read_verify_vkey(),
+        params=l1_params,
+        proofs=[SingleProofWitness(instances=l1_store.read_verify_instance(),
+                                   transcript=l1_store.read_verify_proof())])
+
+
+def verify2_run(l1_store: FolderStore, l2_store: FolderStore,
+                l1_k: int | None = None, l2_k: int = 22, seed: int = 1,
+                transcript: str = "sha", device="cuda", timer=None,
+                keygen_timer=None, params: AccelParams | None = None,
+                l1_params: AccelParams | None = None,
+                assignment: Assignment | None = None):
+    """Layer 2: the stored layer-1 outer proof (Poseidon transcript),
+    verified inside a new aggregation circuit proved at `l2_k` on `device`
+    into `l2_store` (SHA-256 transcript by default, EVM-checkable).
+    `l1_k` defaults to the stored layer-1 vk's k, and must equal it;
+    `params` and `l1_params` are the SRS at l2_k and l1_k (else the cached
+    ones), `assignment` a keygen synthesis of this circuit at l2_k
+    (`prover.accel.synthesize_keygen`) that keygen reuses."""
+    from ..circuits.aggregator import AggregatorCircuit
+
+    l1_vk_k = l1_store.read_verify_vkey().k
+    if l1_k is None:
+        l1_k = l1_vk_k
+    if l1_k != l1_vk_k:
+        raise ValueError(f"the layer-1 proof is at k={l1_vk_k}, not {l1_k}")
+    l1_params = _agg_params(l1_k, device, l1_params)
+    agg2 = AggregatorCircuit([layer2_target(l1_store, l1_params)])
+    return _prove_aggregator(agg2, l2_store, l2_k, seed, transcript, device,
+                             timer, keygen_timer, params, assignment)
+
+
+def verify2_check(l2_store: FolderStore, l2_k: int = 22, device="cuda",
+                  params: AccelParams | None = None):
+    """Verify the layer-2 outer proof on values (the VerifyCheck analog)."""
+    return verify_check_outer(l2_store, agg_k=l2_k, device=device,
+                              params=params)

@@ -28,6 +28,11 @@ COPIES = [
     "gadgets/base_gate.py", "gadgets/range_gate.py",
     "gadgets/integer_chip.py", "gadgets/ecc_chip.py",
     "arith/circuit.py", "circuits/aggregator.py", "prover/mock.py",
+    "solidity/ir.py", "solidity/chips.py", "solidity/transcript.py",
+    "solidity/optimize.py", "solidity/aggregate.py", "solidity/generate.py",
+    "solidity/linear_scan.py", "solidity/interpreter.py",
+    "solidity/packed.py", "solidity/render.py", "solidity/syntax.py",
+    "solidity/lint.py", "solidity/sol_exec.py",
 ]
 
 

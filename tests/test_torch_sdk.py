@@ -12,7 +12,12 @@ its plain twin, against the JAX package:
   * the keygen checkpoint round-trips, is refused for another aggregator
     shape, other target vks or another stored vkey, and a leftover temp
     file is never loaded;
-  * without `--cpu` and without a card a stage raises.
+  * without `--cpu` and without a card a stage raises;
+  * the second recursion layer's glue: verify_check_l1_poseidon accepts a
+    stored Poseidon-transcript proof and rejects a flipped byte with the
+    JAX verifier's verdict; the layer-2 target equals the JAX one;
+  * verify_solidity over a stored outer proof refuses keccak256 with the
+    JAX CLI's exit.
 """
 
 import json
@@ -43,6 +48,8 @@ from halo2_snark_aggregator_tpu_torch.protocol import verify as ppv
 from halo2_snark_aggregator_tpu_torch.protocol import transcript as ptr
 from halo2_snark_aggregator_tpu_torch.protocol.instances import (
     compute_verify_public_input_size)
+from halo2_snark_aggregator_tpu_torch.protocol.queryplan import (query_plan,
+                                                                 rotation_sets)
 from halo2_snark_aggregator_tpu_torch.prover import accel, srs
 from halo2_snark_aggregator_tpu_torch.prover import keygen as pkeygen
 from halo2_snark_aggregator_tpu_torch.prover import kzg as pkzg
@@ -269,3 +276,148 @@ def test_checkpoint_temp_file_never_loaded(tmp_path, k6_key):
     _same_pk(harness.load_checkpoint(store, 6, shape, "cpu"), apk)
     with open(path, "rb") as f:
         assert f.read(2) == b"PK"  # a whole npz (zip) file
+
+
+# -- the second recursion layer's glue and verify_solidity's outer flow ---------
+
+
+G1 = (1, 2)  # the G1 generator: a stand-in final pair for the stores
+
+
+@pytest.fixture(scope="module")
+def l1_stores(tmp_path_factory):
+    """A JAX and a port store, each holding a K=6 SimpleMul proof made with
+    PoseidonWrite (the JAX host prover's bytes in both) under the
+    verify_circuit_* names, as a layer-1 outer proof is stored; beside it
+    the target params and a final pair, as verify_run leaves them."""
+    from halo2_snark_aggregator_tpu.utils.store import FolderStore as JaxStore
+
+    k = SimpleMulCircuit.K
+    params = ParamsKZG.unsafe_setup(k)
+    c = SimpleMulCircuit(3, 5)
+    vk, pk = keygen(c, k, params)
+    proof = create_proof(pk, params, [c], [c.instances()], PoseidonWrite(), seed=0)
+    pparams = pkzg.ParamsKZG.unsafe_setup(k)
+    pvk, _ppk = pkeygen.keygen(psimple.SimpleMulCircuit(3, 5), k, pparams)
+    root = tmp_path_factory.mktemp("l1")
+    stores = {}
+    for name, store, v, p in (("jax", JaxStore(root / "jax"), vk, params),
+                              ("port", FolderStore(root / "port"), pvk, pparams)):
+        store.write_verify_vkey(v)
+        store.write_verify_proof(proof)
+        store.write_verify_instance(c.instances())
+        store.write_target_params("simple", p)
+        store.write_final_pair(G1, G1)
+        stores[name] = store
+    return dict(k=k, stores=stores, params=params, pparams=pparams, proof=proof,
+                instances=c.instances())
+
+
+@pytest.fixture
+def jax_srs(monkeypatch):
+    """The JAX harness and CLI load the layer-1 SRS with the JAX
+    `setup_cached_accel`, whose first build at K=6 jit-compiles the
+    fixed-base MSM for about a minute on a CPU; the value verifier reads only
+    its Lagrange and G2 points, which the host `ParamsKZG` of the same tau
+    holds."""
+    from halo2_snark_aggregator_tpu.prover import srs as jsrs
+
+    monkeypatch.setattr(jsrs, "setup_cached_accel",
+                        lambda k, cache_dir=None: ParamsKZG.unsafe_setup(k))
+
+
+def _verdict(fn):
+    try:
+        return fn()
+    except (RuntimeError, ValueError, AssertionError) as e:
+        return type(e).__name__, str(e)
+
+
+def test_verify_check_l1_poseidon_matches_reference(l1_stores, jax_srs):
+    from halo2_snark_aggregator_tpu.sdk import harness as jharness
+
+    k, stores = l1_stores["k"], l1_stores["stores"]
+    aparams = accel.AccelParams.from_params(l1_stores["pparams"], device="cpu")
+    assert harness.verify_check_l1_poseidon(stores["port"], k, device="cpu",
+                                            params=aparams) is True
+    assert jharness.verify_check_l1_poseidon(stores["jax"], k) is True
+
+    # the low byte of the last evaluation, before the opening points (one a
+    # rotation set, 32 bytes compressed in the Poseidon transcript)
+    proof = l1_stores["proof"]
+    sets = rotation_sets(query_plan(stores["port"].read_verify_vkey(), 1))
+    bad = bytearray(proof)
+    bad[len(proof) - 32 * len(sets) - 32] ^= 0x01
+    try:
+        for store in stores.values():
+            store.write_verify_proof(bytes(bad))
+        got = _verdict(lambda: harness.verify_check_l1_poseidon(
+            stores["port"], k, device="cpu", params=aparams))
+        want = _verdict(lambda: jharness.verify_check_l1_poseidon(stores["jax"], k))
+    finally:
+        for store in stores.values():
+            store.write_verify_proof(proof)
+    assert got == want == ("RuntimeError",
+                           "layer-1 poseidon proof failed native verification")
+
+
+def test_layer2_target_matches_reference(l1_stores):
+    """verify2_run's one target: the same vk digest, instances and proof
+    bytes as the JAX verify2_run builds; the layer-2 keygen checkpoint names
+    the layer-1 vk's fingerprint."""
+    from halo2_snark_aggregator_tpu.circuits import aggregator as jagg
+    from halo2_snark_aggregator_tpu_torch.circuits.aggregator import AggregatorCircuit
+
+    jstore = l1_stores["stores"]["jax"]
+    want = jagg.VerifierCircuitTarget(
+        name="verify_circuit_l1", vk=jstore.read_verify_vkey(),
+        params=l1_stores["params"],
+        proofs=[jagg.SingleProofWitness(instances=jstore.read_verify_instance(),
+                                        transcript=jstore.read_verify_proof())])
+    got = harness.layer2_target(l1_stores["stores"]["port"], l1_stores["pparams"])
+    assert got.name == want.name
+    assert fixtures.vk_fingerprint(got.vk) == fixtures.vk_fingerprint(want.vk)
+    assert got.vk.transcript_repr() == want.vk.transcript_repr()
+    assert [p.instances for p in got.proofs] == [p.instances for p in want.proofs]
+    assert [p.transcript for p in got.proofs] == [p.transcript for p in want.proofs]
+    assert harness.aggregator_shape(AggregatorCircuit([got])) == {
+        "n_targets": 1, "n_proofs": [1],
+        "targets": [fixtures.vk_fingerprint(got.vk)]}
+
+
+def test_verify2_run_refuses_another_l1_k(l1_stores, tmp_path):
+    with pytest.raises(ValueError, match="the layer-1 proof is at k=6, not 7"):
+        harness.verify2_run(l1_stores["stores"]["port"], FolderStore(tmp_path),
+                            l1_k=7, l2_k=22, device="cpu")
+
+
+def test_verify_solidity_keccak_outer_refused_as_reference(l1_stores, jax_srs):
+    """Over a stored outer proof both CLIs refuse --algo keccak256 with the
+    same exit (the outer proof's transcript is SHA-256)."""
+    exits = []
+    for mod, store in ((jcli, l1_stores["stores"]["jax"]),
+                       (pcli, l1_stores["stores"]["port"])):
+        with pytest.raises(SystemExit) as e:
+            mod.main(["-c", "verify_solidity", "-f", str(store.folder),
+                      "--algo", "keccak256", "--agg-k", str(l1_stores["k"]),
+                      "--cpu"])
+        exits.append(e.value.code)
+    assert exits[0] == exits[1] == ("stored outer proofs use the sha256 "
+                                    "transcript (harness.verify_run)")
+
+
+def test_keygen_synthesis_rows_and_reuse(k6_key):
+    """synthesize_keygen counts the rows a circuit uses, smallest_k the least
+    k that holds them, and keygen_accel given that synthesis makes the same
+    key as its own."""
+    vk, _apk = k6_key
+    c = psimple.SimpleMulCircuit(2, 3)
+    asg = accel.synthesize_keygen(c, 6)
+    assert asg.n == 64 and 0 <= asg.max_row_touched < asg.usable_rows
+    k = harness.smallest_k(asg)
+    assert (1 << k) - (asg.n - asg.usable_rows) > asg.max_row_touched
+    assert (1 << (k - 1)) - (asg.n - asg.usable_rows) <= asg.max_row_touched
+    aparams = accel.AccelParams.from_params(pkzg.ParamsKZG.unsafe_setup(6),
+                                            device="cpu")
+    got, _pk = accel.keygen_accel(c, 6, aparams, assignment=asg)
+    assert fixtures.vk_fingerprint(got) == fixtures.vk_fingerprint(vk)
