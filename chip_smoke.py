@@ -93,9 +93,23 @@ Phases (each prints one line; any failure raises and exits nonzero):
      passes, a flipped byte fails), the layer-2 circuit's rows from one
      keygen synthesis and l2_k the least k that holds them, the CLI's
      verify2_run at l2_k (spans and peaks by StageTimer), verify2_check
-     passes and a flipped byte fails, the CLI's verify2_check.
+     passes and a flipped byte fails, the CLI's verify2_check;
+ 13. the sharded paths (parallel/), each against the unsharded one, over a
+     1-rank NCCL group in this process and over worlds of gloo ranks that
+     share the card (parallel/group.spawn, one process a rank): 13a the
+     sharded MSM of the K=18 SRS's 2^18 points == msm_totals + the row
+     combine == the native Pippenger; 13b the four-step NTT at k=22,
+     forward and inverse, == ntt_batch word for word; 13c
+     BatchedVerifier(group=) at K=16 batch 128 on 2 ranks: phase 6's pair,
+     the pairing passes, a flipped byte fails on both, proofs/s beside
+     phase 6's; 13d the two-level MSM on 4 ranks (2 hosts x 2 chips) ==
+     13a; 13e verify_check(group=) over the four K=16 proofs on 2 ranks,
+     every MSM sharded == 11b's pair; 13f the shuffle and synthetic
+     circuits' proofs made on the card == the host prover's bytes. The
+     ranks' launches enter the kernels line as the shard_* paths; every
+     rank checks that it imported no JAX.
 Then a JSON line of the K=18 proof's and verifier's numbers, the 2^22
-commit's and the SDK's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
+commit's, the SDK's and phase 13's, a JSON line of the kernels (per launch: `ms`, torch.profiler's device
 time; `launch_ms`, CUDA events around the Python calls, the host's launch
 rate for short kernels; the twin's time and the bound; the launches on each
 path; their registers and spills from ptxas and machine instructions; for
@@ -106,7 +120,8 @@ extra time, which holds the 1/n epilogue; for the row
 program, its size; under `k18`, each kernel's launches on the K=18
 paths and its check at the K=18 shape; under `sdk`, its launches on the
 SDK's paths of phases 10-11 and its check at the k=22 aggregator's
-shape), the nvidia-smi line, and the
+shape; phase 13's launches are its `shard_*` and `prove_extra` paths'
+`launches_by_path` entries), the nvidia-smi line, and the
 final JSON line
 {"ok": true, "device": {...}}. The script fails if jax or any module of the
 JAX package was imported.
@@ -187,10 +202,22 @@ PATH_KERNELS.update(setup_keygen_k18=PATH_KERNELS["setup_keygen"],
                     sdk_solidity=PATH_KERNELS["prove"],
                     setup_k20=("fixed_base", "field"),
                     l1_run_k20=PATH_KERNELS["prove"],
-                    l2_run=PATH_KERNELS["prove"])
+                    l2_run=PATH_KERNELS["prove"],
+                    # phase 13: the sharded paths (the ranks' launches
+                    # summed) and the two new circuits' proofs
+                    shard_msm_nccl=("msm_accumulate", "msm_reduce"),
+                    shard_ntt_nccl=("ntt_transform", "field"),
+                    shard_msm=("msm_accumulate", "msm_reduce"),
+                    shard_ntt=("ntt_transform", "field"),
+                    shard_verify=PATH_KERNELS["verify"],
+                    shard_hybrid=("msm_accumulate", "msm_reduce"),
+                    shard_hier=("msm_accumulate", "msm_reduce"),
+                    prove_extra=PATH_KERNELS["prove"])
 AGG_K = 22
 L1_K = 20               # the layer-1 outer proof of phase 12 (bench.py:514)
 L2_K = 21               # its layer 2: 2,056,353 rows, measured on the card
+SHARD_NTT_K = 22        # phase 13b: the outer proof's transform size
+SHARD_TIMEOUT = 150.0   # phase 13: a world's deadline and its groups' timeout
 CROSSOVER_REPS = 3
 
 
@@ -1902,6 +1929,336 @@ def commit_ab(params, rng) -> str:
             f"second device commit in ms: {split})")
 
 
+# -- phase 13: the sharded paths ---------------------------------------------------
+
+
+def seeded_fr(n: int, seed: int) -> np.ndarray:
+    """n canonical Fr values as (n, 8) uint32 words, made on the host from
+    `seed` (every rank of a world makes the same ones)."""
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randint(0, 1 << 32, (n, 8), dtype=torch.int64, generator=gen)
+    w[:, 7] %= int(fo.FR.p_words[7])
+    return w.numpy().astype(np.uint32)
+
+
+def shard_msm_leg(info, g_words, scalars, n_hosts=None):
+    """13a / 13d (a rank): this rank's chunk of the affine table (g_words
+    (n, 3, 8)) and of the standard-form scalars (n, 8), through the sharded
+    MSM (every rank of the world) or the two-level MSM on an n_hosts x
+    (world / n_hosts) grid, twice: (the point, the seconds of each run from
+    the upload to the point)."""
+    import torch.distributed as dist
+
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.ops import msm as msm_ops
+    from halo2_snark_aggregator_tpu_torch.parallel import group as pg
+    from halo2_snark_aggregator_tpu_torch.parallel import msm_shard, multihost
+
+    groups = None if n_hosts is None else pg.host_groups(
+        n_hosts, info.world // n_hosts)
+    seconds = []
+    for _ in range(2):  # the first run in a fresh process loads the kernels
+        dist.barrier()
+        t0 = time.perf_counter()
+        lo, hi = msm_shard.chunk_bounds(len(scalars), info.rank, info.world)
+        table = msm_ops.affine_table(
+            fo.to_tensor(g_words[lo:hi], info.device).unbind(1))
+        scal = fo.to_tensor(scalars[lo:hi], info.device)
+        if groups is None:
+            pt = msm_shard.msm_sharded(table, scal, 8, dist.group.WORLD)
+        else:
+            pt = multihost.msm_hier(table, scal, *groups, 8)
+        seconds.append(time.perf_counter() - t0)
+    return pt, seconds
+
+
+def shard_ntt_leg(info, seed, k1, k2, inverse):
+    """13b (a rank): the four-step transform of `seeded_fr(2^(k1+k2),
+    seed)`: (this rank's rows of R as a host array, seconds)."""
+    import torch.distributed as dist
+
+    from halo2_snark_aggregator_tpu_torch.parallel import dryrun as dr
+
+    x = seeded_fr(1 << (k1 + k2), seed)
+    dist.barrier()
+    t0 = time.perf_counter()
+    r = dr.ntt_leg(info, x, k1, k2, inverse)
+    return r, time.perf_counter() - t0
+
+
+def shard_verify_leg(info, vk, params, reps):
+    """13c (a rank): the sharded batched verifier over the K=16 proofs
+    tiled to batch 128: (w_x, w_g, ok, seconds a verify over `reps` after
+    a warm one, the last stage split, the flipped-byte verdict)."""
+    import torch.distributed as dist
+
+    from halo2_snark_aggregator_tpu_torch.bench import tiled_proofs
+    from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
+
+    proofs, insts = tiled_proofs(16)
+    bv = BatchedVerifier(vk, params, batch=len(proofs), sample_proof=proofs[0],
+                         sample_instances=insts[0], device=info.device,
+                         group=dist.group.WORLD)
+    *_pair, ok = bv.verify(proofs, insts)  # warm
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        w_x, w_g, ok = bv.verify(proofs, insts)
+        if not ok:
+            break
+    dt = (time.perf_counter() - t0) / reps
+    stages = dict(bv.last_profile)
+    off = next(ref for kind, ref in bv.manifest if kind == "scalar")
+    bad = list(proofs)
+    corrupt = bytearray(bad[5])
+    corrupt[off] ^= 0x01
+    bad[5] = bytes(corrupt)
+    try:
+        *_pair, bad_ok = bv.verify(bad, insts)
+        verdict = f"ok={bad_ok}"
+    except ValueError as e:
+        bad_ok, verdict = False, f"ValueError: {e}"
+    return w_x, w_g, ok, dt, stages, bad_ok, verdict
+
+
+def rank_counts(outs, leg: str) -> dict:
+    """One leg's launches by kernel, summed over the ranks of a world."""
+    total: dict = {}
+    for o in outs:
+        for k, v in o.result[leg][1].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def shard_phase(dev, rng, paths, set_path, params16, vk16, uniq, want16,
+                pair6, rate6, out) -> None:
+    """Phase 13: the sharded paths (parallel/) on the card, each against
+    the unsharded one. 13a the sharded MSM of the K=18 SRS's 2^18 points
+    (uniform scalars) == msm_totals + the row combine == the native
+    Pippenger, over a 1-rank NCCL group here and over 2 gloo ranks sharing
+    cuda:0; 13b the four-step NTT at k = 22 (k1 = k2 = 11), forward and
+    inverse, == `ntt_batch` word for word, on the same two worlds; 13c
+    `BatchedVerifier(group=)` at K=16, batch 128, over the 2 ranks: the
+    pair == phase 6's, the pairing passes, a flipped byte fails on both;
+    13d the two-level MSM on 4 ranks (2 hosts x 2 chips on cuda:0) ==
+    13a; 13e `verify_check(group=)` over the four K=16 proofs on the 2
+    ranks, every MSM sharded (device_min 0) == phase 11b's pair; 13f the
+    shuffle and synthetic circuits' proofs made on the card == the port's
+    host `create_proof`. Ranks that share one card are no scaling
+    measurement: their times say what the path costs there."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from halo2_snark_aggregator_tpu_torch.circuits.shuffle import ShuffleCircuit
+    from halo2_snark_aggregator_tpu_torch.circuits.synthetic import SyntheticCircuit
+    from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.ops import field as fo
+    from halo2_snark_aggregator_tpu_torch.ops import msm as msm_ops
+    from halo2_snark_aggregator_tpu_torch.ops import ntt as nt
+    from halo2_snark_aggregator_tpu_torch.parallel import dryrun as dr
+    from halo2_snark_aggregator_tpu_torch.parallel import group as pg
+    from halo2_snark_aggregator_tpu_torch.parallel import msm_shard, ntt_shard
+    from halo2_snark_aggregator_tpu_torch.prover import accel, srs
+    from halo2_snark_aggregator_tpu_torch.prover import keygen as hkeygen
+    from halo2_snark_aggregator_tpu_torch.prover import kzg as pkzg
+    from halo2_snark_aggregator_tpu_torch.prover import prove as hprove
+    from halo2_snark_aggregator_tpu_torch.transcript.host import PoseidonWrite
+    from halo2_snark_aggregator_tpu_torch.utils.store import FolderStore
+
+    t_phase = time.perf_counter()
+    k1 = k2 = SHARD_NTT_K // 2
+    params18 = srs.setup_cached_accel(18, device=dev)
+    table = params18.table()
+    n = params18.n
+    scal = rand_fr_bulk((n,), rng, dev)
+    totals, weights = msm_ops.msm_totals(table, scal, 8)
+    want_pt = msm_ops.combine_rows_host(totals.unbind(1), weights, 8)
+    if want_pt is None or want_pt != native_msm_words(table, scal):
+        raise AssertionError("13a: the unsharded MSM differs from the native "
+                             "Pippenger")
+    g_words, s_words = fo.to_numpy(params18.g_dev), fo.to_numpy(scal)
+    seed = int(rng.integers(1 << 62))
+    x = fo.to_tensor(seeded_fr(1 << SHARD_NTT_K, seed), dev)
+    want_fwd = fo.to_numpy(nt.ntt_batch(x[None], SHARD_NTT_K)[0])
+    want_inv = fo.to_numpy(nt.ntt_batch(x[None], SHARD_NTT_K, inverse=True)[0])
+    del params18, totals, weights
+
+    def same_ntt(r, want, what):
+        if not (ntt_shard.ntt_sharded_to_host(r) == want).all():
+            raise AssertionError(f"13b: {what} differs from ntt_batch")
+
+    # 13a, 13b over a 1-rank NCCL group in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        pg.init_group("nccl", dev, SHARD_TIMEOUT, f"file://{tmp}/rendezvous",
+                      0, 1)
+        try:
+            build.reset_launches()
+            nccl_msm_s = []
+            for _ in range(2):  # the first call holds NCCL's first collective
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                got = msm_shard.msm_sharded(table, scal, 8)
+                nccl_msm_s.append(time.perf_counter() - t0)
+            set_path("shard_msm_nccl", dict(build.LAUNCHES))
+            build.reset_launches()
+            b = ntt_shard.shard_rows(x, k1, k2, 0, 1)
+            times = []
+            rs = []
+            for inverse in (False, True):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                rs.append(fo.to_numpy(ntt_shard.ntt_sharded(b, k1, k2,
+                                                            inverse=inverse)))
+                times.append(time.perf_counter() - t0)
+            set_path("shard_ntt_nccl", dict(build.LAUNCHES))
+        finally:
+            dist.destroy_process_group()
+    if got != want_pt:
+        raise AssertionError("13a: the 1-rank NCCL sharded MSM differs")
+    same_ntt(rs[0], want_fwd, "the 1-rank NCCL forward")
+    same_ntt(rs[1], want_inv, "the 1-rank NCCL inverse")
+    del rs, b, x, table, scal
+    phase("13a/13b nccl", f"backend nccl, 1 rank on {dev}: sharded MSM of "
+          f"2^18 K=18 SRS points == msm_totals + combine == native Pippenger "
+          f"({nccl_msm_s[0] * 1e3:.1f} ms, again {nccl_msm_s[1] * 1e3:.1f} ms); "
+          f"four-step NTT k=22 (k1=k2={k1}) "
+          f"forward and inverse == ntt_batch word for word ({times[0] * 1e3:.1f}"
+          f" / {times[1] * 1e3:.1f} ms with the copy to the host); launches "
+          f"{paths['shard_msm_nccl']}, {paths['shard_ntt_nccl']}")
+
+    # 13a, 13b, 13c, 13e over 2 gloo ranks sharing the card
+    hparams = pkzg.ParamsKZG(16, params16.g_host_points(), params16.g_lagrange,
+                             params16.g2, params16.s_g2)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = FolderStore(tmp)
+        store.write_target_params("zkevm16", hparams)
+        store.write_target_vkey("zkevm16", (vk16, {}))
+        for i, (p, inst) in enumerate(uniq):
+            store.write_target_proof("zkevm16", i, p)
+            store.write_target_instance("zkevm16", i, inst)
+        legs = [("msm", shard_msm_leg, (g_words, s_words)),
+                ("ntt_fwd", shard_ntt_leg, (seed, k1, k2, False)),
+                ("ntt_inv", shard_ntt_leg, (seed, k1, k2, True)),
+                ("verify", shard_verify_leg, (vk16, hparams, REPS)),
+                ("check", dr.check_leg, (tmp, [("zkevm16", 16, len(uniq))],
+                                         0))]
+        t0 = time.perf_counter()
+        outs = pg.spawn(dr.run_legs, 2, "cuda", "gloo", SHARD_TIMEOUT,
+                        args=(legs,))
+        world2_s = time.perf_counter() - t0
+        stored = store.read_final_pair()
+    for leg, name in (("msm", "shard_msm"), ("ntt_fwd", "shard_ntt"),
+                      ("verify", "shard_verify"), ("check", "shard_hybrid")):
+        counts = rank_counts(outs, leg)
+        if leg == "ntt_fwd":
+            inv = rank_counts(outs, "ntt_inv")
+            counts = {k: v + inv[k] for k, v in counts.items()}
+        set_path(name, counts)
+    res = [{k: v for k, (v, _c) in o.result.items()} for o in outs]
+    for r, (o, rr) in enumerate(zip(outs, res)):
+        if o.forbidden:
+            raise AssertionError(f"rank {r} imported {o.forbidden[:5]}")
+        if rr["msm"][0] != want_pt:
+            raise AssertionError(f"13a: rank {r}'s sharded MSM differs")
+        w_x, w_g, ok, _dt, _st, bad_ok, _v = rr["verify"]
+        if not ok or (w_x, w_g) != pair6:
+            raise AssertionError(f"13c: rank {r}: ok={ok}, pair == phase 6's: "
+                                 f"{(w_x, w_g) == pair6}")
+        if bad_ok:
+            raise AssertionError(f"13c: rank {r} accepted a flipped byte")
+        if tuple(rr["check"]) != want16:
+            raise AssertionError(f"13e: rank {r}'s verify_check pair differs")
+    same_ntt(np.concatenate([rr["ntt_fwd"][0] for rr in res]), want_fwd,
+             "the 2-rank forward")
+    same_ntt(np.concatenate([rr["ntt_inv"][0] for rr in res]), want_inv,
+             "the 2-rank inverse")
+    if stored != want16:
+        raise AssertionError("13e: the stored final pair differs")
+    verify_dt = max(rr["verify"][3] for rr in res)
+    stages = res[0]["verify"][4]
+    phase("13a gloo msm", f"backend gloo, 2 ranks sharing {dev}: the sharded "
+          f"MSM of the 2^18 points == 13a's on every rank (ms by rank, first "
+          f"and second run, upload included: "
+          f"{[[round(t * 1e3, 1) for t in rr['msm'][1]] for rr in res]}); "
+          f"launches {paths['shard_msm']}")
+    phase("13b gloo ntt", f"backend gloo, 2 ranks sharing {dev}: k=22 forward "
+          f"and inverse == ntt_batch word for word (ms by rank, forward / "
+          f"inverse with the copies: "
+          f"{[(round(rr['ntt_fwd'][1] * 1e3, 1), round(rr['ntt_inv'][1] * 1e3, 1)) for rr in res]}"
+          f"); launches {paths['shard_ntt']}")
+    phase("13c verify", f"backend gloo, 2 ranks sharing {dev}: "
+          f"BatchedVerifier(group=) at K=16 batch 128: pair == phase 6's, "
+          f"pairing ok, flipped byte -> {res[0]['verify'][6]} on rank 0 and "
+          f"{res[1]['verify'][6]} on rank 1; {128 / verify_dt:.2f} proofs/s "
+          f"(2 ranks on one card, the slower rank) beside phase 6's "
+          f"{rate6:.2f} (1 process); stages of rank 0: "
+          + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in stages.items())
+          + f"; launches {paths['shard_verify']}")
+    phase("13e hybrid", f"backend gloo, 2 ranks sharing {dev}: "
+          f"verify_check(group=) over the {len(uniq)} K=16 proofs, every "
+          f"multi_exp sharded (device_min 0): pair == 11b's on both ranks, "
+          f"rank 0 stored it; launches {paths['shard_hybrid']}; the 2-rank "
+          f"world {world2_s:.1f} s with its start")
+    out["nccl"] = dict(msm_ms=[t * 1e3 for t in nccl_msm_s], ntt_fwd_ms=times[0] * 1e3,
+                       ntt_inv_ms=times[1] * 1e3)
+    out["gloo2"] = dict(
+        msm_ms=[[t * 1e3 for t in rr["msm"][1]] for rr in res],
+        ntt_ms=[(rr["ntt_fwd"][1] * 1e3, rr["ntt_inv"][1] * 1e3) for rr in res],
+        verify_proofs_per_s=128 / verify_dt, phase6_proofs_per_s=rate6,
+        verify_stages_s=stages, world_s=world2_s)
+
+    # 13d: the two-level MSM on 2 hosts x 2 chips, all on cuda:0
+    t0 = time.perf_counter()
+    outs = pg.spawn(dr.run_legs, 4, "cuda", "gloo", SHARD_TIMEOUT,
+                    args=([("hier", shard_msm_leg, (g_words, s_words, 2))],))
+    world4_s = time.perf_counter() - t0
+    set_path("shard_hier", rank_counts(outs, "hier"))
+    for r, o in enumerate(outs):
+        if o.forbidden:
+            raise AssertionError(f"rank {r} imported {o.forbidden[:5]}")
+        if o.result["hier"][0][0] != want_pt:
+            raise AssertionError(f"13d: rank {r}'s two-level MSM differs")
+    phase("13d hier", f"backend gloo, 4 ranks (2 hosts x 2 chips) sharing "
+          f"{dev}: the two-level MSM == 13a on every rank (ms by rank, first "
+          f"and second run: "
+          f"{[[round(t * 1e3, 1) for t in o.result['hier'][0][1]] for o in outs]}); "
+          f"launches {paths['shard_hier']}; the world {world4_s:.1f} s")
+    out["gloo4"] = dict(hier_ms=[[t * 1e3 for t in o.result["hier"][0][1]]
+                                 for o in outs],
+                        world_s=world4_s)
+
+    # 13f: the shuffle and synthetic circuits proved on the card
+    build.reset_launches()
+    sizes = {}
+    for name, make, k, seed_p in (
+            ("shuffle", ShuffleCircuit, ShuffleCircuit.K, 5),
+            ("synthetic", lambda: SyntheticCircuit(k=8, seed=5), 8, 4)):
+        params = pkzg.ParamsKZG.unsafe_setup(k)
+        circuit = make()
+        aparams = accel.AccelParams.from_params(params, device=dev)
+        _avk, apk = accel.keygen_accel(circuit, k, aparams)
+        card = accel.create_proof_accel(apk, aparams, [circuit],
+                                        [circuit.instances()], PoseidonWrite(),
+                                        seed=seed_p)
+        _vk, pk = hkeygen.keygen(circuit, k, params)
+        host = hprove.create_proof(pk, params, [circuit], [circuit.instances()],
+                                   PoseidonWrite(), seed=seed_p)
+        if card != host:
+            raise AssertionError(f"13f: the {name} proof made on the card "
+                                 f"differs from the host prover's")
+        sizes[name] = len(card)
+    set_path("prove_extra", dict(build.LAUNCHES))
+    seconds = time.perf_counter() - t_phase
+    phase("13f circuits", f"shuffle (K=6, multi-phase) and synthetic (k=8) "
+          f"proofs made on the card with device commits == the host "
+          f"create_proof's bytes ({sizes} B); launches {paths['prove_extra']}; "
+          f"phase 13 {seconds:.1f} s")
+    out["seconds"] = seconds
+
+
 SDK_PATHS = ("setup_k22", "hybrid_k16", "sdk_sample", "sdk_solidity",
              "verify_setup_k22", "verify_run_k22", "setup_k20", "l1_run_k20",
              "l2_run")
@@ -1926,12 +2283,6 @@ def shape_entry(r, paths, kname, path_names):
                                  "b1_ms", "b1_bound_ms", "checked") if k in r}}
 
 
-def forbidden_modules() -> list[str]:
-    return sorted(m for m in sys.modules
-                  if m == "jax" or m.startswith("jax.")
-                  or m.split(".")[0] == "halo2_snark_aggregator_tpu")
-
-
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1943,6 +2294,7 @@ def main() -> int:
     from halo2_snark_aggregator_tpu_torch import prove as pprove
     from halo2_snark_aggregator_tpu_torch.bench import card_info, tiled_proofs
     from halo2_snark_aggregator_tpu_torch.kernels import build
+    from halo2_snark_aggregator_tpu_torch.parallel import group as pg
     from halo2_snark_aggregator_tpu_torch.protocol.batched import BatchedVerifier
     from halo2_snark_aggregator_tpu_torch.prover import quotient_program
 
@@ -1987,11 +2339,14 @@ def main() -> int:
 
     paths: dict[str, dict] = {}
 
-    def read_path(path: str) -> None:
-        paths[path] = dict(build.LAUNCHES)
+    def set_path(path: str, counts: dict) -> None:
+        paths[path] = {k: counts.get(k, 0) for k in build.KERNELS}
         missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"{path} path did not launch {missing}")
+
+    def read_path(path: str) -> None:
+        set_path(path, build.LAUNCHES)
 
     build.reset_launches()
     params, vk, apk, timings = fixtures.setup(16, dev, "device")
@@ -2040,10 +2395,11 @@ def main() -> int:
         raise AssertionError("batch-128 warm verify failed")
     t0 = time.perf_counter()
     for _ in range(REPS):
-        *_pair, ok = bv.verify(proofs, insts)
+        *pair6, ok = bv.verify(proofs, insts)
         if not ok:
             raise AssertionError("batch-128 timed verify failed")
     dt = (time.perf_counter() - t0) / REPS
+    pair6 = tuple(pair6)
     read_path("verify")
     if paths["verify"]["poseidon"] != REPS + 1:
         raise AssertionError(f"{paths['verify']['poseidon']} sponge launches "
@@ -2052,7 +2408,8 @@ def main() -> int:
     prof = dv.profile_device(lambda: bv.verify(proofs, insts), dev)
     top = ", ".join(f"{re.sub(r'[(<].*', '', k)} {c['count']}x {c['s'] * 1e3:.2f}ms"
                     for k, c in list(prof["by_kernel"].items())[:5])
-    phase("6 main", f"batch {bv.batch} K=16 zkevm-shape: {bv.batch / dt:.2f} "
+    bv_rate = bv.batch / dt
+    phase("6 main", f"batch {bv.batch} K=16 zkevm-shape: {bv_rate:.2f} "
           f"proofs/s ({dt:.3f} s/verify) on {card}; record {record_s:.1f} s; "
           f"launches over {REPS + 1} verifies {paths['verify']}; "
           f"{len(bv.tape.records)} tape records, "
@@ -2109,13 +2466,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     recursion_phase(dev, paths, read_path, params22, res22["sdk"])
     del params22
+    torch.cuda.empty_cache()
+    res_shard: dict = {}
+    shard_phase(dev, rng, paths, set_path, params, vk, uniq, want, pair6,
+                bv_rate, res_shard)
 
-    bad_mods = forbidden_modules()
+    bad_mods = pg.forbidden_modules()
     if bad_mods:
         raise AssertionError(f"imported jax or the JAX package: {bad_mods[:5]}")
     print(json.dumps({"k18": {kk: res18[kk] for kk in ("prove", "verify",
                                                        "hybrid")},
-                      "k22_commit": res22["commit_k22"], "sdk": res22["sdk"]}))
+                      "k22_commit": res22["commit_k22"], "sdk": res22["sdk"],
+                      "shard": res_shard}))
     kernels = []
     for kname, (src, ref) in KERNEL_SOURCES.items():
         r = results[kname]

@@ -17,6 +17,7 @@ import os
 from .. import device as dv
 from ..ff import bn254 as ff
 from ..ops import msm as msm_ops
+from ..parallel import msm_shard
 from .value import ValueContext, ValueEccChip
 
 # The smallest MSM that runs on the card: the crossover of `msm_ints` and
@@ -32,11 +33,14 @@ class DeviceEccChip(ValueEccChip):
     """Size-aware MSM dispatch: `msm_ints` on `device` for an MSM of at
     least `device_min` points, the native host MSM below it. `device_min`
     defaults to H2T_MSM_DEVICE_MIN, else DEVICE_MIN. `device_msms` counts
-    the MSMs sent to the device."""
+    the MSMs sent to the device; with a `group` they are sharded over its
+    ranks, which must all make the same calls."""
 
-    def __init__(self, device="cuda", c: int = 8, device_min: int | None = None):
+    def __init__(self, device="cuda", c: int = 8, device_min: int | None = None,
+                 group=None):
         super().__init__()
         self.device = dv.resolve(device)
+        self.group = group
         self.c = c
         if device_min is None:
             device_min = int(os.environ.get("H2T_MSM_DEVICE_MIN", DEVICE_MIN))
@@ -50,12 +54,16 @@ class DeviceEccChip(ValueEccChip):
         if len(points) < self.device_min:
             return ff.g1_msm(points, scalars)
         self.device_msms += 1
+        if self.group is not None:
+            return msm_shard.msm_sharded_ints(points, scalars, self.c,
+                                              self.device, self.group)
         return msm_ops.msm_ints(points, scalars, self.c, self.device)
 
 
-def make_device_chips(device="cuda", c: int = 8, device_min: int | None = None):
+def make_device_chips(device="cuda", c: int = 8, device_min: int | None = None,
+                      group=None):
     """(ctx, nchip, schip, pchip) wired for hybrid verification on
-    `device`."""
+    `device`, the MSMs sharded over `group` when one is given."""
     ctx = ValueContext()
-    pchip = DeviceEccChip(device, c=c, device_min=device_min)
+    pchip = DeviceEccChip(device, c=c, device_min=device_min, group=group)
     return ctx, pchip.scalar_chip, pchip.scalar_chip, pchip

@@ -431,6 +431,21 @@ def combine_rows_host(totals, weights, c: int):
     return ff.g1_msm([p for p, _ in entries], [s for _, s in entries])
 
 
+def ints_table(points, device):
+    """`affine_table` of host affine int points (None = identity) on
+    `device`; empty for no points."""
+    if not points:
+        empty = torch.zeros((0, fo.WORDS), dtype=torch.int32, device=device)
+        return empty, empty, empty[:, 0].bool()
+    return affine_table(cv.from_affine_ints(list(points), device))
+
+
+def ints_words(scalars, device) -> torch.Tensor:
+    """Int scalars, taken mod r, as (n, 8) standard-form words."""
+    return fo.to_tensor(fo.ints_to_words([int(s) % ff.R for s in scalars]),
+                        device)
+
+
 def msm_ints(points, scalars, c: int = 8, device="cuda"):
     """sum_i s_i P_i over host affine int points (None = identity) and int
     scalars, on `device`: an affine int point, or None. The counterpart of
@@ -445,7 +460,6 @@ def msm_ints(points, scalars, c: int = 8, device="cuda"):
     if not points:
         return None
     dev = dv.resolve(device)
-    table = affine_table(cv.from_affine_ints(points, dev))
-    words = fo.to_tensor(fo.ints_to_words([int(s) % ff.R for s in scalars]), dev)
-    totals, weights = msm_totals(table, words, c)
+    totals, weights = msm_totals(ints_table(points, dev),
+                                 ints_words(scalars, dev), c)
     return combine_rows_host(totals.unbind(1), weights, c)

@@ -17,6 +17,13 @@ halo2_snark_aggregator_tpu/protocol/batched.py, same stages):
   7. host: row combine, off-curve gate, leftover generator terms,
      pairing check.
 
+With a process `group` (the reference's `mesh=`), every rank records the
+same verifier on its own device and runs phases A and B1 whole; in phase
+B2 each rank builds the affine table of only its chunk of each MSM's
+entries and runs the split plan and kernels over it; the ranks' rows are
+all-gathered (the `gather` span of `last_profile`) and every rank
+combines all of them, so each gets the same (w_x, w_g) and verdict.
+
 `TapePoint`, `ConstPoint`, `TapeEccChip` and `RecordingTranscript` are
 copies of the reference's recording classes (its module imports jax).
 """
@@ -38,6 +45,7 @@ from ..hashes.poseidon_chip import PoseidonChipSponge
 from ..ops import curve as cv
 from ..ops import field as fo
 from ..ops import msm as msm_mod
+from ..parallel import msm_shard
 from ..transcript.host import PoseidonRead, PoseidonSponge
 from . import verify as pv
 
@@ -139,15 +147,18 @@ class RecordingTranscript:
 
 class BatchedVerifier:
     """Record once per (vk, batch) on `device` (the card unless the caller
-    asks for the CPU); verify many batches."""
+    asks for the CPU); verify many batches. With a torch.distributed
+    `group`, phase B2 is sharded over its ranks (every rank calls `verify`
+    with the same batch)."""
 
     def __init__(self, vk, params, batch: int, sample_proof: bytes,
                  sample_instances: list, msm_window: int = 8, *,
-                 device="cuda"):
+                 device="cuda", group=None):
         self.vk = vk
         self.params = params
         self.batch = batch
         self.device = dv.resolve(device)
+        self.group = group
         self.msm_window = msm_window
         self.n_instances = [len(col) for col in sample_instances]
         self.last_profile: dict[str, float] = {}
@@ -365,6 +376,14 @@ class BatchedVerifier:
     def _padded_n(self, n_entries: int) -> int:
         return 1 << max(3, (n_entries * self.batch - 1).bit_length())
 
+    def _chunk(self, n_entries: int) -> tuple[int, int]:
+        """[lo, hi) of the (entry, lane) points this rank's phase B2 takes:
+        all of them, padded, without a group; else its chunk of the
+        unpadded n_entries * batch."""
+        if self.group is None:
+            return 0, self._padded_n(n_entries)
+        return msm_shard.my_chunk(n_entries * self.batch, self.group)
+
     # -- phase B --------------------------------------------------------------
     def _phase_b1(self, slots, lam_pows):
         """Lambda-scale and de-Montgomery every MSM scalar (entry-major,
@@ -394,9 +413,13 @@ class BatchedVerifier:
         return scalars, leftovers
 
     def _phase_b2(self, tables, scalars):
-        """Row totals and their windows of each MSM (the split plan)."""
-        return [msm_mod.msm_totals(t, s, self.msm_window)
-                for t, s in zip(tables, scalars)]
+        """Row totals and their windows of each MSM (the split plan), over
+        this rank's chunk of the entries with a group."""
+        outs = []
+        for t, s, (entries, _l) in zip(tables, scalars, self.msm_plans):
+            lo, hi = self._chunk(len(entries))
+            outs.append(msm_shard.local_rows(t, s[lo:hi], self.msm_window))
+        return outs
 
     # -- public API -----------------------------------------------------------
     def verify(self, proofs: list[bytes], instances_per_lane: list):
@@ -430,13 +453,17 @@ class BatchedVerifier:
         for pts, (entries, _l) in zip(pts_resolved, self.msm_plans):
             flat = [p for entry in pts for p in entry]  # (n*B) order: entry-major
             flat += [None] * (self._padded_n(len(entries)) - len(flat))
-            tables.append(msm_mod.affine_table(cv.from_affine_ints(flat, self.device)))
+            lo, hi = self._chunk(len(entries))
+            tables.append(msm_mod.ints_table(flat[lo:hi], self.device))
         mark("entry_points")
 
         scalars, leftovers = self._phase_b1(slots, lam_pows)
         mark("phase_b1")
         outs = self._phase_b2(tables, scalars)
         mark("phase_b2")
+        if self.group is not None:
+            outs = [msm_shard.gather_rows(*o, self.group) for o in outs]
+            mark("gather")
 
         results = []
         for (totals, weights), e_int in zip(outs, leftovers):

@@ -48,6 +48,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as dv
 from ..arith.device_value import make_device_chips
@@ -154,10 +155,13 @@ def sample_run(spec: TargetCircuitSpec, store: FolderStore, device="cuda"):
 
 
 def verify_check(specs: list[TargetCircuitSpec], store: FolderStore,
-                 device="cuda"):
+                 device="cuda", group=None):
     """Aggregate-verify every stored proof on the hybrid chips and store the
-    final pair (calc_verify_circuit_final_pair, verify_circuit.rs:103-201)."""
-    ctx, nchip, schip, pchip = make_device_chips(device)
+    final pair (calc_verify_circuit_final_pair, verify_circuit.rs:103-201).
+    With a torch.distributed `group` (the reference's `mesh=`) every rank
+    runs this call, the device MSMs are sharded over the ranks, each rank
+    returns the same pair and rank 0 of the group stores it."""
+    ctx, nchip, schip, pchip = make_device_chips(device, group=group)
 
     circuits = []
     for spec in specs:
@@ -180,7 +184,8 @@ def verify_check(specs: list[TargetCircuitSpec], store: FolderStore,
     )
     if not ok:
         raise RuntimeError("aggregated pairing check failed")
-    store.write_final_pair(w_x, w_g)
+    if group is None or dist.get_rank(group) == 0:
+        store.write_final_pair(w_x, w_g)
     log.info("verify_check: %d circuits aggregated, final pair stored; ctx=%s",
              len(circuits), ctx)
     return w_x, w_g, plain_instances

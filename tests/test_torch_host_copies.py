@@ -33,6 +33,7 @@ COPIES = [
     "solidity/linear_scan.py", "solidity/interpreter.py",
     "solidity/packed.py", "solidity/render.py", "solidity/syntax.py",
     "solidity/lint.py", "solidity/sol_exec.py",
+    "circuits/shuffle.py", "circuits/synthetic.py", "arith/ast.py",
 ]
 
 
