@@ -1,0 +1,11 @@
+"""prove.other_s: the host work outside every other span a proof (the port's `StageTimer` span
+`other`, exclusive of nested spans), the mean over the traced window's proofs."""
+
+SPANS = ('other',)
+
+
+def read(r):
+    if r.get("entry") != "prove" or not r.get("spans"):
+        return None
+    total = sum(sum(s.get(k, 0.0) for k in SPANS) for s in r["spans"])
+    return 1.0 * total / len(r["spans"])
