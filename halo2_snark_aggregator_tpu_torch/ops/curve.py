@@ -22,6 +22,8 @@ each wrapper launches its kernel, on a CPU tensor its twin (`padd_plain`,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..ff import bn254 as ff
@@ -303,20 +305,45 @@ def normalize_affine(points: torch.Tensor) -> torch.Tensor:
 # -- decompression -------------------------------------------------------------
 
 
-def decompress_g1_ys(xs_ints: list[int], device) -> list:
-    """For each x < p: y = sqrt(x^3 + 3) as a standard int (parity not yet
-    adjusted), or None when x^3 + 3 is not a square (x is off the curve).
-    y = (x^3+3)^((p+1)/4) through the field kernel's pow mode (p = 3 mod 4),
-    then the check y^2 == x^3 + 3."""
-    if not xs_ints:
-        return []
+class G1Points(NamedTuple):
+    """Decompressed G1 points on the device, row i of each field: x_std and
+    y_std standard-form words (n, 8), x and y Montgomery words (n, 8), ok
+    (n,) false where x is off the curve, ident (n,) the identity rows
+    (every coordinate word 0 there)."""
+
+    x_std: torch.Tensor
+    y_std: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    ok: torch.Tensor
+    ident: torch.Tensor
+
+
+def decompress_g1(enc: torch.Tensor) -> G1Points:
+    """Batched G1 decompression on enc's device. enc: (n, 8) int32 words of
+    the 32-byte compressed encodings, x in bits 0-254 (the caller holds x
+    < p), y's parity in bit 255; all zero is the identity. y = (x^3 +
+    3)^((p+1)/4) through the field kernel's pow mode (p = 3 mod 4), ok
+    where y^2 == x^3 + 3 (else x is off the curve), and y negated (the
+    field kernel's SUB from 0) where its standard form's parity differs
+    from the encoded bit. No host read."""
+    dev = enc.device
+
     def mul(a, b):
         return fo.elementwise(fo.MUL, FQ, a, b)
 
-    x = fo.to_tensor(fo.ints_to_words(xs_ints), device)
-    x = mul(x, fo.const(FQ, FQ.r2, device, mont=False))  # to Montgomery
-    t = fo.elementwise(fo.ADD, FQ, mul(mul(x, x), x), fo.const(FQ, 3, device))
+    ident = (enc == 0).all(dim=-1)
+    sign = enc[:, 7] < 0  # bit 255
+    x_std = enc.clone()
+    x_std[:, 7] &= 0x7FFFFFFF
+    x = mul(x_std, fo.const(FQ, FQ.r2, dev, mont=False))  # to Montgomery
+    t = fo.elementwise(fo.ADD, FQ, mul(mul(x, x), x), fo.const(FQ, 3, dev))
     y = fo.elementwise(fo.POW, FQ, t, exponent=(ff.P + 1) // 4)
-    ok = (mul(y, y) == t).all(dim=-1).cpu().tolist()
-    ys = fo.words_to_ints(mul(y, fo.const(FQ, 1, device, mont=False)))
-    return [yv if good else None for yv, good in zip(ys, ok)]
+    ok = (mul(y, y) == t).all(dim=-1)
+    y_std = mul(y, fo.const(FQ, 1, dev, mont=False))
+    both = torch.stack([y, y_std])
+    neg = fo.elementwise(fo.SUB, FQ, torch.zeros_like(both), both)
+    flip = (((y_std[:, 0] & 1) == 1) != sign)[:, None]
+    keep = ~ident[:, None]
+    y, y_std = (torch.where(flip, n, v) * keep for n, v in zip(neg, both))
+    return G1Points(x_std, y_std, x, y, ok | ident, ident)

@@ -3,15 +3,19 @@
 Pipeline of `BatchedVerifier.verify` (the reference's
 halo2_snark_aggregator_tpu/protocol/batched.py, same stages):
 
-  1. decompress every proof point (field kernel: sqrt by a fixed power);
-  2. pack the standard-form input block on the host;
+  1. decompress every proof point (field kernel: sqrt by a fixed power)
+     into a table that stays on the device;
+  2. pack the standard-form input block: scalars and instances from the
+     host, the point coordinates scattered from that table;
   3. phase A: the compiled tape (arith/tape.py) — Montgomery conversion,
      the sponge chain (Poseidon kernel), the levelized Fr ops and batched
      inversions (field kernel) — into a slots buffer on the device;
   4. host: absorb each lane's last squeeze, squeeze lambda;
   5. phase B1: scale every MSM scalar and the leftover terms by the lanes'
      lambda powers and leave Montgomery form (field kernel);
-  6. phase B2: split bucket plan on the device -> accumulate kernel ->
+  6. phase B2: each MSM's affine table gathered on the device from the
+     call's points, the instance commitments and the key's constants;
+     split bucket plan on the device -> accumulate kernel ->
      reduce kernel, per MSM (w_x, w_g); the scalars never leave the device
      (the reference plans the unsigned plan on the host);
   7. host: row combine, off-curve gate, leftover generator terms,
@@ -50,7 +54,16 @@ from ..transcript.host import PoseidonRead, PoseidonSponge
 from . import verify as pv
 
 FR = fo.FR
+FQ = fo.FQ
 NBYTES = 32
+
+
+def _at_least_p(words: np.ndarray) -> np.ndarray:
+    """(n,) where the uint32 words (n, 8) hold a value >= p."""
+    ge = np.ones(len(words), dtype=bool)
+    for i, pw in enumerate(FQ.p_words):  # low word up; a higher word decides
+        ge = (words[:, i] > pw) | ((words[:, i] == pw) & ge)
+    return ge
 
 
 # -- symbolic points (copied from the reference) --------------------------------
@@ -216,72 +229,110 @@ class BatchedVerifier:
             for entries, _l in self.msm_plans
         ]
         self._from_mont = fo.const(FR, 1, self.device, mont=False)
+        self._man = self._man_index()
+        self._index_points()
+        # rows of the last call's MSM tables by where they came from:
+        # gathered from the device's points, or uploaded from host ints
+        self.last_points: dict[str, int] = {}
 
-    # -- host-side packing ----------------------------------------------------
-    def _decompress_all(self, proofs: list[bytes]):
-        """Decompress every proof point once per verify call, batched on the
-        device (ops/curve.decompress_g1_ys). Returns {(lane, byte_offset):
-        affine point or None}."""
-        offs = sorted({ref for kind, ref in self.manifest if kind == "point_x"})
+    # -- the call's points ---------------------------------------------------
+    def _index_points(self):
+        """Every index into a call's point data, from the recorded plan and
+        the batch. A call decompresses P proof points a lane, lane-major
+        (row b * P + j holds lane b's point at byte offset _pt_offs[j]).
+        Phase A's point rows are scattered from those rows. Each MSM plan's
+        table, entry-major and padded to `_padded_n` with identity rows, is
+        gathered from one source table: the B * P proof points, the B * C
+        instance commitments (lane-major, C columns), the key's constant
+        points (uploaded here), one identity row."""
+        B, C, dev = self.batch, len(self.n_instances), self.device
+        offs = {ref for kind, ref in self.manifest if kind == "point_x"}
+        consts: dict = {}
         for entries, _l in self.msm_plans:
             for point, _s in entries:
-                if not isinstance(point, ConstPoint) and point.source[0] == "proof":
-                    offs.append(point.source[1])
-        offs = sorted(set(offs))
-        table, items = {}, []
-        for b, proof in enumerate(proofs):
-            for off in offs:
-                raw = proof[off : off + 32]
-                if raw == b"\x00" * 32:
-                    table[(b, off)] = None
-                    continue
-                sign = (raw[31] >> 7) & 1
-                x = int.from_bytes(raw[:31] + bytes([raw[31] & 0x7F]), "little")
-                if x >= ff.P:
-                    raise ValueError("x not canonical")
-                items.append((b, off, x, sign))
-        ys = cv.decompress_g1_ys([x for _b, _o, x, _s in items], self.device)
-        for (b, off, x, sign), y in zip(items, ys):
-            if y is None:
-                raise ValueError("not on curve")
-            if (y & 1) != sign:
-                y = ff.P - y
-            table[(b, off)] = (x, y)
-        return table
+                if isinstance(point, ConstPoint):
+                    consts.setdefault(point.point, len(consts))
+                elif point.source[0] == "proof":
+                    offs.add(point.source[1])
+        self._pt_offs = np.asarray(sorted(offs), dtype=np.int64)
+        col = {off: j for j, off in enumerate(self._pt_offs.tolist())}
+        P = len(col)
 
-    def _pack_inputs(self, proofs: list[bytes], instances_per_lane: list,
-                     pt_table: dict):
-        """Assemble the (manifest, B, 32) standard-byte input block. Point
-        coordinates (Fq, possibly >= r) go in unreduced: phase A's
-        Montgomery conversion reduces any value below 2^256."""
-        B = len(proofs)
-        man = self._man_index()
+        # phase A: manifest row <- column of the (B, 2P) x-then-y table
+        man = self._man
+        self._pt_rows = torch.from_numpy(
+            np.concatenate([man["ptx_pos"], man["pty_pos"]])).to(dev)
+        self._pt_cols = torch.tensor(
+            [col[o] for o in man["ptx_offs"]]
+            + [P + col[o] for o in man["pty_offs"]], dtype=torch.int64,
+            device=dev)
+
+        pts = list(consts) + [None]
+        xy = fo.mont_words(FQ, [0 if p is None else p[0] for p in pts]
+                           + [1 if p is None else p[1] for p in pts], dev)
+        self._const_x, self._const_y = xy[: len(pts)], xy[len(pts):]
+        self._const_ident = torch.tensor([p is None for p in pts], device=dev)
+
+        commit0, const0 = B * P, B * P + B * C
+        lanes = np.arange(B)
+        self._gather_idx, self._device_rows = [], 0
+        for entries, _l in self.msm_plans:
+            idx = np.full(self._padded_n(len(entries)), const0 + len(consts),
+                          dtype=np.int64)
+            for e, (point, _s) in enumerate(entries):
+                if isinstance(point, ConstPoint):
+                    row = const0 + consts[point.point]
+                elif point.source[0] == "proof":
+                    row = lanes * P + col[point.source[1]]
+                else:
+                    row = commit0 + lanes * C + point.source[1]
+                idx[e * B : (e + 1) * B] = row
+            lo, hi = self._chunk(len(entries))
+            idx = idx[lo:hi]
+            self._device_rows += int(((idx < commit0) | (idx >= const0)).sum())
+            self._gather_idx.append(torch.from_numpy(idx).to(dev))
+
+    @staticmethod
+    def _proof_bytes(proofs: list[bytes]) -> np.ndarray:
+        """The (B, proof_len) byte matrix of the lanes' proofs."""
+        plen = len(proofs[0])
+        if any(len(p) != plen for p in proofs):
+            raise ValueError("same vk => same proof length")
+        return np.frombuffer(b"".join(proofs), dtype=np.uint8).reshape(
+            len(proofs), plen)
+
+    def _decompress_all(self, pbytes: np.ndarray) -> cv.G1Points:
+        """Decompress every proof point once per verify call, on the device
+        (ops/curve.decompress_g1), rows lane-major as `_index_points` lays
+        them out. x >= p (checked here, on the host's copy of the bytes) and
+        x off the curve (one host read of the flags) raise ValueError."""
+        enc = pbytes[:, self._pt_offs[:, None] + np.arange(NBYTES)]
+        words = np.ascontiguousarray(enc).view("<u4").reshape(-1, fo.WORDS)
+        x = words.copy()
+        x[:, -1] &= 0x7FFFFFFF
+        if (_at_least_p(x) & words.any(axis=1)).any():
+            raise ValueError("x not canonical")
+        pts = cv.decompress_g1(fo.to_tensor(words, self.device))
+        if not bool(pts.ok.all()):
+            raise ValueError("not on curve")
+        return pts
+
+    def _pack_inputs(self, pbytes: np.ndarray, instances_per_lane: list,
+                     pts: cv.G1Points):
+        """Phase A's (manifest, B, 8) standard-form input block on the
+        device: the transcript scalars, instances and instance commitments
+        from the host, then the proof point coordinates (zero for the
+        identity) by one scatter from `pts`. Point coordinates (Fq, possibly
+        >= r) go in unreduced: phase A's Montgomery conversion reduces any
+        value below 2^256."""
+        B = pbytes.shape[0]
+        man = self._man
         out = np.zeros((B, len(self.manifest), NBYTES), dtype=np.uint8)
 
         # transcript scalars: one gather over the (B, L) proof byte matrix
         if len(man["scal_pos"]):
-            plen = len(proofs[0])
-            if any(len(p) != plen for p in proofs):
-                raise ValueError("same vk => same proof length")
-            pbytes = np.frombuffer(b"".join(proofs), dtype=np.uint8)
-            pbytes = pbytes.reshape(B, plen)
             win = man["scal_offs"][:, None] + np.arange(NBYTES)
             out[:, man["scal_pos"]] = pbytes[:, win]
-
-        # proof point coords (already decompressed to canonical ints)
-        zero32 = bytes(NBYTES)
-        for pos_key, offs_key, coord in (("ptx_pos", "ptx_offs", 0),
-                                         ("pty_pos", "pty_offs", 1)):
-            poss, offs = man[pos_key], man[offs_key]
-            if not len(poss):
-                continue
-            buf = b"".join(
-                zero32 if pt_table[(b, off)] is None
-                else pt_table[(b, off)][coord].to_bytes(NBYTES, "little")
-                for b in range(B) for off in offs)
-            blk = np.frombuffer(buf, dtype=np.uint8).reshape(
-                B, len(poss), NBYTES)
-            out[:, poss] = blk
 
         # instance scalars + instance commitments (few entries; host ints),
         # with a bounded cache: tiled batches share few distinct columns
@@ -318,13 +369,14 @@ class BatchedVerifier:
                     v.to_bytes(NBYTES, "little"), dtype=np.uint8)
 
         words = np.ascontiguousarray(out.transpose(1, 0, 2)).view("<u4")
-        return words, commits_per_lane
+        inputs = fo.to_tensor(words, self.device)
+        std = torch.cat([pts.x_std.reshape(B, -1, fo.WORDS),
+                         pts.y_std.reshape(B, -1, fo.WORDS)], dim=1)
+        inputs[self._pt_rows] = std[:, self._pt_cols].transpose(0, 1)
+        return inputs, commits_per_lane
 
     def _man_index(self):
-        """Per-type manifest index arrays (built once, cached)."""
-        cached = getattr(self, "_man_cache", None)
-        if cached is not None:
-            return cached
+        """Per-type manifest index arrays."""
         idx = {"scal_pos": [], "scal_offs": [], "ptx_pos": [], "ptx_offs": [],
                "pty_pos": [], "pty_offs": [], "inst_pos": [], "inst_ref": [],
                "icommit": []}
@@ -350,28 +402,29 @@ class BatchedVerifier:
         for k in ("scal_pos", "scal_offs", "ptx_pos", "ptx_offs",
                   "pty_pos", "pty_offs", "inst_pos"):
             idx[k] = np.asarray(idx[k], dtype=np.int64)
-        self._man_cache = idx
         return idx
 
-    def _entry_points(self, proofs, commits_per_lane, pt_table: dict):
-        """Resolve every MSM entry's per-lane affine point (host ints)."""
-        resolved = []
-        for entries, _ in self.msm_plans:
-            pts = []
-            for point, _scalar in entries:
-                if isinstance(point, ConstPoint):
-                    pts.append([point.point] * self.batch)
-                else:
-                    kind, ref = point.source
-                    lane_pts = []
-                    for b in range(self.batch):
-                        if kind == "proof":
-                            lane_pts.append(pt_table[(b, ref)])
-                        else:
-                            lane_pts.append(commits_per_lane[b][ref])
-                    pts.append(lane_pts)
-            resolved.append(pts)
-        return resolved
+    def _msm_tables(self, pts: cv.G1Points, commits_per_lane: list):
+        """Each MSM plan's affine table (x, y, identity) of this rank's [lo,
+        hi), gathered on the device from the call's source table
+        (`_index_points`): only the B * C instance commitments are uploaded
+        from host ints. Sets `last_points`."""
+        dev = self.device
+        flat = [p for lane in commits_per_lane for p in lane]
+        if len(flat) != self.batch * len(self.n_instances):
+            raise ValueError("every lane needs one commitment a column")
+        cxy = fo.mont_words(FQ, [0 if p is None else p[0] for p in flat]
+                            + [1 if p is None else p[1] for p in flat], dev)
+        one = fo.const(FQ, 1, dev)
+        src_x = torch.cat([pts.x, cxy[: len(flat)], self._const_x])
+        src_y = torch.cat([torch.where(pts.ident[:, None], one, pts.y),
+                           cxy[len(flat):], self._const_y])
+        src_i = torch.cat([pts.ident,
+                           torch.tensor([p is None for p in flat], device=dev),
+                           self._const_ident])
+        self.last_points = {"device_rows": self._device_rows,
+                            "host_rows": len(flat)}
+        return [(src_x[i], src_y[i], src_i[i]) for i in self._gather_idx]
 
     def _padded_n(self, n_entries: int) -> int:
         return 1 << max(3, (n_entries * self.batch - 1).bit_length())
@@ -432,11 +485,12 @@ class BatchedVerifier:
 
         if len(proofs) != self.batch:
             raise ValueError(f"expected {self.batch} proofs, got {len(proofs)}")
-        pt_table = self._decompress_all(proofs)
+        pbytes = self._proof_bytes(proofs)
+        pts = self._decompress_all(pbytes)
         mark("decompress")
-        inputs, commits = self._pack_inputs(proofs, instances_per_lane, pt_table)
+        inputs, commits = self._pack_inputs(pbytes, instances_per_lane, pts)
         mark("pack_inputs")
-        slots = self.run_tape.run(fo.to_tensor(inputs, self.device))
+        slots = self.run_tape.run(inputs)
         mark("tape_phase_a")
 
         # aggregation transcript: absorb per-lane final squeezes, get lambda
@@ -448,13 +502,7 @@ class BatchedVerifier:
             self.device).unsqueeze(0)
         mark("outer_squeeze")
 
-        pts_resolved = self._entry_points(proofs, commits, pt_table)
-        tables = []
-        for pts, (entries, _l) in zip(pts_resolved, self.msm_plans):
-            flat = [p for entry in pts for p in entry]  # (n*B) order: entry-major
-            flat += [None] * (self._padded_n(len(entries)) - len(flat))
-            lo, hi = self._chunk(len(entries))
-            tables.append(msm_mod.ints_table(flat[lo:hi], self.device))
+        tables = self._msm_tables(pts, commits)
         mark("entry_points")
 
         scalars, leftovers = self._phase_b1(slots, lam_pows)
@@ -490,5 +538,7 @@ class BatchedVerifier:
                              for (_, t0), (name, t1) in zip(marks, marks[1:])}
         if prof:
             spans = " ".join(f"{k}={v:.3f}s" for k, v in self.last_profile.items())
-            print(f"BV profile (batch {self.batch}): {spans}", file=sys.stderr)
+            rows = " ".join(f"{k}={v}" for k, v in self.last_points.items())
+            print(f"BV profile (batch {self.batch}): {spans} {rows}",
+                  file=sys.stderr)
         return w_x, w_g, ok

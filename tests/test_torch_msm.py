@@ -199,17 +199,45 @@ def test_from_to_affine_roundtrip():
     assert cv.to_affine_ints(cv.from_affine_ints(pts, "cpu")) == pts
 
 
-def test_decompress_matches_host_sqrt():
-    rng = np.random.default_rng(82)
-    pts = _points(83, 6)
-    xs = [p[0] for p in pts]
-    off = [int(rng.integers(1, 1 << 40)) for _ in range(6)]
-    off = [x for x in off if ff.sqrt_mod_p((x ** 3 + 3) % ff.P) is None][:2]
+def _encode(x, y):
+    """halo2's 32-byte compressed G1 encoding as uint32 words: x, y's
+    parity in bit 255; the identity (None) all zero."""
+    if x is None:
+        return [0] * 8
+    v = x | (y & 1) << 255
+    return list(np.frombuffer(v.to_bytes(32, "little"), "<u4"))
+
+
+@pytest.mark.parametrize("seed", [83, 84])
+def test_device_decompress_matches_host(seed):
+    """decompress_g1 on encodings of random points of both parities, the
+    identity and xs off the curve, against the host sqrt_mod_p: x, y in
+    Montgomery and standard form, word for word, and each off-curve row
+    flagged."""
+    rng = np.random.default_rng(seed)
+    pts = _points(seed, 10)
+    pts = pts + [(x, ff.P - y) for x, y in pts]  # the other parity of each
+    assert {y & 1 for _x, y in pts} == {0, 1}
+    for x, y in pts:
+        r = ff.sqrt_mod_p((x ** 3 + 3) % ff.P)
+        assert y in (r, ff.P - r)
+    pts.insert(3, None)
+    off = [int(rng.integers(1, 1 << 40)) for _ in range(12)]
+    off = [x for x in off if ff.sqrt_mod_p((x ** 3 + 3) % ff.P) is None][:3]
     assert off
-    ys = cv.decompress_g1_ys(xs + off, "cpu")
-    for (x, y), got in zip(pts, ys[:6]):
-        assert got in (y, ff.P - y)
-    assert ys[6:] == [None] * len(off)
+    enc = fo.to_tensor(np.array([_encode(*(p or (None, None))) for p in pts]
+                                + [_encode(x, i) for i, x in enumerate(off)],
+                                np.uint32), "cpu")
+    got = cv.decompress_g1(enc)
+    n = len(pts)
+    assert got.ok.tolist() == [True] * n + [False] * len(off)
+    assert got.ident.tolist() == [p is None for p in pts] + [False] * len(off)
+    want = [(0, 0) if p is None else p for p in pts]
+    for i, field in enumerate(("x_std", "y_std")):
+        assert fo.words_to_ints(getattr(got, field)[:n]) == [p[i] for p in want]
+    for i, field in enumerate(("x", "y")):
+        assert (fo.from_mont_words(fo.FQ, getattr(got, field)[:n])
+                == [p[i] for p in want])
 
 
 def test_kernel_wrappers_validate():

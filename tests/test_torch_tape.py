@@ -117,12 +117,13 @@ def test_executor_matches_host_replay(simple):
     params, vk, proofs, insts = simple
     bv = pbatched.BatchedVerifier(vk, params, batch=2, sample_proof=proofs[0],
                                   sample_instances=insts[0], device="cpu")
-    pts = bv._decompress_all(proofs)
-    words, _commits = bv._pack_inputs(proofs, insts, pts)
-    slots = bv.run_tape.run(fo.to_tensor(words, "cpu"))
+    pbytes = bv._proof_bytes(proofs)
+    inputs, _commits = bv._pack_inputs(pbytes, insts,
+                                       bv._decompress_all(pbytes))
+    slots = bv.run_tape.run(inputs)
     tape = bv.tape
     for lane in range(2):
-        ins = fo.words_to_ints(words[:, lane])
+        ins = fo.words_to_ints(inputs[:, lane])
         want = _replay(tape, ins)
         got = fo.from_mont_words(fo.FR, slots[:, lane])
         assert len(want) == tape.n_slots
